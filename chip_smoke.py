@@ -9,15 +9,25 @@ Phases, in order; any failure exits non-zero:
    nvcc (in parallel) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (rel 2e-5 of max|plain|), and time kernel, plain
-   version and one torch.einsum call for the same function with CUDA events.
-   Then check a small release against the float64 host oracles.
+   version and one torch.einsum call for the same function with CUDA events
+   (followed by torch.cumsum on the marked axes for the chains with the
+   ResidualPlanner+ 'cumsum' epilogue).  Then check a small release against
+   the float64 host oracles.
 3. Adult, all <=3-way marginals: select_sum_of_variances -> MarginalEngine
    (device="cuda") -> release, marginals from seeded synthetic records.
    Every table within 6 sigma of the exact marginal; both kernels launched.
 4. Synth-10^d (d = 100), all <=3-way: the same release over marginals of a
    seeded mixture; every table within 7 sigma (about 1.6e8 cells: at 6 sigma
    some 0.3 cells would exceed the bound by chance, at 7 sigma 4e-4).
-5. Print the kernels line and, last, {"ok": true, "device": {...}}.
+5. [rplus-synth] ResidualPlanner+ on Synth-10^20, every attribute a range
+   query, all <=3-way, hierarchical strategy: select_plus (SoV) ->
+   PlusEngine -> release; every range answer within 7 sigma (per-cell sigma
+   from cell_variances_plus; about 1.9e8 cells) of the exact answer.
+6. [rplus-adult] ResidualPlanner+ in the paper's section 9 prefix setting:
+   Adult <=3-way, attributes 0-4 prefix queries with p-Identity strategies
+   (strategy_mode="auto"), the rest identity, on the [adult] records; every
+   answer within 6 sigma; both kernels and the in-kernel epilogue launched.
+7. Print the kernels line and, last, {"ok": true, "device": {...}}.
 
 It imports torch, numpy and the port only.  Without CUDA it exits non-zero
 before printing any result.
@@ -65,17 +75,45 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def chain_work(factors, dims, batch):
+def device_ms(fn, reps: int):
+    """(kernel ms, copy ms) of one call of ``fn`` on the card, from
+    torch.profiler's device events over ``reps`` calls: the time the card
+    spent in kernels and in memory copies, whatever the host spent around
+    them.  (None, None) if the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = copy = 0.0
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copy += us
+        else:
+            kern += us
+    if kern + copy <= 0:
+        return None, None
+    return kern / 1e3 / reps, copy / 1e3 / reps
+
+
+def chain_work(factors, dims, batch, epilogue=()):
     """(bytes, FLOP) of one fused launch: each row read once and written
-    once, the factors read once; 2·m·n FLOP per output of every axis."""
+    once, the factors read once; 2·m·n FLOP per output of every live axis
+    and one add per output of every 'cumsum' axis."""
     cur = list(dims)
     flops = 0
     for axis, s in enumerate(factors):
+        if s is None:
+            continue
         m, n = s.shape
         flops += 2 * math.prod(cur[:axis]) * m * n * math.prod(cur[axis + 1:])
         cur[axis] = m
+    flops += math.prod(cur) * sum(op is not None for op in epilogue)
     nbytes = 4 * (batch * (math.prod(dims) + math.prod(cur))
-                  + sum(s.size for s in factors))
+                  + sum(s.size for s in factors if s is not None))
     return nbytes, batch * flops
 
 
@@ -91,13 +129,28 @@ def rel_err(got, want) -> float:
 
 def einsum_chain(factors, x, dims):
     """One torch.einsum call for the chain (timed as a yardstick only).
-    x comes first so a left-to-right contraction is the per-axis chain."""
+    x comes first so a left-to-right contraction is the per-axis chain;
+    a None factor leaves its axis as it is."""
     letters = "ijklmn"[:len(dims)]
-    outs = "abcdef"[:len(dims)]
-    spec = (f"z{letters}," + ",".join(f"{o}{i}" for o, i in zip(outs, letters))
+    outs = "".join(i if f is None else o
+                   for f, i, o in zip(factors, letters, "abcdef"))
+    live = [(f, o, i) for f, o, i in zip(factors, outs, letters) if f is not None]
+    spec = (f"z{letters}," + ",".join(f"{o}{i}" for _, o, i in live)
             + f"->z{outs}")
-    return torch.einsum(spec, x.view(x.shape[0], *dims), *factors).reshape(
-        x.shape[0], -1)
+    return torch.einsum(spec, x.view(x.shape[0], *dims),
+                        *[f for f, _, _ in live]).reshape(x.shape[0], -1)
+
+
+def einsum_cumsum_chain(factors, x, dims, epilogue):
+    """The library yardstick of an epilogue chain: einsum_chain, then one
+    torch.cumsum per marked axis."""
+    y = einsum_chain(factors, x, dims)
+    out = [n if f is None else f.shape[0] for f, n in zip(factors, dims)]
+    y = y.view(x.shape[0], *out)
+    for axis, op in enumerate(epilogue):
+        if op is not None:
+            y = torch.cumsum(y, dim=axis + 1)
+    return y.reshape(x.shape[0], -1)
 
 
 def phase_build():
@@ -111,6 +164,13 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
 
 
+def t_factor(kind, n):
+    """T = [Sub^+ | 1/n] of an RP+ basis with the hierarchical strategy."""
+    from repro_torch.core.plus import attr_basis, build_w, s_hierarchical
+    b = attr_basis(build_w(kind, n), s_hierarchical(n))
+    return np.hstack([b.sub_pinv, np.full((n, 1), 1.0 / n)])
+
+
 def phase_kernels(card):
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.core.reconstruct import u_chain_factors
@@ -119,33 +179,48 @@ def phase_kernels(card):
     from repro_torch.kernels.kron_matvec.fused import (
         fused_chain_matvec, fused_chain_matvec_plain, plan_chain)
     from repro_torch.kernels.kron_matvec.ops import kron_matvec_kernel
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_cliques = math.comb(SYNTH_D, 3)
     synth3 = synth_domain(10, 3)
+    cumsum3 = ("cumsum",) * 3
+    # (kernel, label, factors, dims, batch, epilogue, route): route "fused"
+    # must fit the fused kernel, "axis" must not (the per-axis kernel, then
+    # torch.cumsum for an epilogue).
     cases = [
         ("fused_chain", "Synth-10^%d 3-way measure chain" % SYNTH_D,
-         [sub_matrix(10)] * 3, (10, 10, 10), 2 * n_cliques),
+         [sub_matrix(10)] * 3, (10, 10, 10), 2 * n_cliques, (), "fused"),
         ("fused_chain", "Synth-10^%d 3-way reconstruct chain" % SYNTH_D,
-         u_chain_factors(synth3, (0, 1, 2)), (10, 10, 10), n_cliques),
+         u_chain_factors(synth3, (0, 1, 2)), (10, 10, 10), n_cliques, (),
+         "fused"),
+        ("fused_chain", "(a) Synth-10^20 range 3-way reconstruct chain, "
+         "cumsum on 3 axes", [t_factor("range", 10)] * 3, (10, 10, 10),
+         math.comb(20, 3), cumsum3, "fused"),
+        ("fused_chain", "(b) mixed (identity 9, prefix 85) chain, cumsum on "
+         "both axes, 255 rows", [None, t_factor("prefix", 85)], (9, 85), 255,
+         ("cumsum", "cumsum"), "fused"),
+        ("fused_chain", "(c) Adult prefix (100,100,100) reconstruct chain, "
+         "per-axis kernel + torch.cumsum", [t_factor("prefix", 100)] * 3,
+         (100, 100, 100), 1, cumsum3, "axis"),
         ("kron_axis", "Adult (100,100,100) measure chain, 3 launches",
-         [sub_matrix(100)] * 3, (100, 100, 100), 2),
+         [sub_matrix(100)] * 3, (100, 100, 100), 2, (), "axis"),
     ]
     rows = []
-    for name, label, facs, dims, batch in cases:
-        s_facs = [np.asarray(s, np.float32) for s in facs]
-        s_dev = [torch.as_tensor(s, device=dev) for s in s_facs]
+    for name, label, facs, dims, batch, epi, route in cases:
+        s_facs = [None if s is None else np.asarray(s, np.float32) for s in facs]
+        s_dev = [None if s is None else torch.as_tensor(s, device=dev)
+                 for s in s_facs]
         x = torch.randn((batch, math.prod(dims)), generator=gen, device=dev)
+        if plan_chain(s_facs, dims, batch=batch).fused_ok != (route == "fused"):
+            raise AssertionError(f"{label} does not take the {route} route")
         if name == "fused_chain":
-            if not plan_chain(s_facs, dims, batch=batch).fused_ok:
-                raise AssertionError(f"{label} does not fit the fused kernel")
-            kernel = lambda: fused_chain_matvec(s_facs, x, dims)  # noqa: E731
-            nbytes, flops = chain_work(s_facs, dims, batch)
-            bound_ms, bound_by = bound(nbytes, flops)
+            kernel = lambda: fused_chain_matvec(  # noqa: E731
+                s_facs, x, dims, epilogue=epi or None)
+            bound_ms, bound_by = bound(*chain_work(s_facs, dims, batch, epi))
         else:
-            if plan_chain(s_facs, dims, batch=batch).fused_ok:
-                raise AssertionError(f"{label} fits the fused kernel")
             kernel = lambda: kron_matvec_kernel(  # noqa: E731
                 [None] + s_facs, x.reshape(-1), (batch,) + dims).reshape(batch, -1)
             # Each launch is one call of the per-axis function: its input,
@@ -162,9 +237,24 @@ def phase_kernels(card):
                 t_ops += flops / FP32_PEAK * 1e3
                 cur[axis] = m
             bound_by = "operations" if t_ops >= t_mem else "bytes"
-        plain = lambda: fused_chain_matvec_plain(s_facs, x, dims)  # noqa: E731
-        library = lambda: einsum_chain(s_dev, x, dims)  # noqa: E731
-        got, want, lib = kernel(), plain(), library()
+        plain = lambda: fused_chain_matvec_plain(s_facs, x, dims, epi)  # noqa: E731
+        if epi:
+            library = lambda: einsum_cumsum_chain(s_dev, x, dims, epi)  # noqa: E731
+        else:
+            library = lambda: einsum_chain(s_dev, x, dims)  # noqa: E731
+        reset_chain_stats()
+        got = kernel()
+        torch.cuda.synchronize()
+        st = chain_stats()
+        if epi and route == "fused" and not (st["fused_launches"] == 1
+                                             and st["epilogue_launches"] == 1):
+            raise AssertionError(f"{label}: the epilogue was not in the "
+                                 f"fused launch: {st}")
+        if epi and route == "axis" and not (st["fused_launches"] == 0
+                                            and st["fallback_chains"] == 1
+                                            and st["axis_launches"] == 3):
+            raise AssertionError(f"{label}: not the per-axis route: {st}")
+        want, lib = plain(), library()
         torch.cuda.synchronize()
         err = rel_err(got, want)
         abs_err = float((got - want).abs().max())
@@ -172,17 +262,23 @@ def phase_kernels(card):
         reps = 20 if batch > 1000 else 50
         ms, plain_ms, lib_ms = (time_ms(kernel, reps), time_ms(plain, reps),
                                 time_ms(library, reps))
-        print(f"[kernels] {name} | {label}: rel err {err:.3e} (einsum "
-              f"{lib_err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"einsum {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-              f"| {card}")
+        dev_ms, copy_ms = device_ms(kernel, reps)
+        lib_name = "einsum+cumsum" if epi else "einsum"
+        dev_txt = ("not measured" if dev_ms is None else
+                   f"{dev_ms:.4f} ms in kernels + {copy_ms:.4f} ms in copies")
+        print(f"[kernels] {name} | {label}: rel err {err:.3e} ({lib_name} "
+              f"{lib_err:.3e}), kernel {ms:.4f} ms (device: {dev_txt}), plain "
+              f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) | {card}")
         if not err <= REL_TOL:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {label}: rel err {err:.3e}")
         rows.append(dict(name=name, case=label, max_abs_err=abs_err,
                          rel_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib_ms))
+                         library_ms=lib_ms, device_kernel_ms=dev_ms,
+                         device_copy_ms=copy_ms, epilogue=list(epi),
+                         path=route))
         del x, got, want, lib
         torch.cuda.empty_cache()
     return rows
@@ -248,8 +344,56 @@ def check_tables(plan, tables, exact, k_sigma):
     return worst
 
 
-def release_phase(name, plan, make_marginals, k_sigma):
+def check_plus_tables(plan, tables, exact, k_sigma, chunk=64):
+    """Every RP+ answer finite, of its shape, within k_sigma of the exact
+    answer (⊗ W_i of the exact marginal, float64), per-cell sigma as in
+    cell_variances_plus.  Signature group by group and ``chunk`` cliques at
+    a time, so host memory stays bounded."""
+    from repro_torch.core.domain import subsets
+    from repro_torch.core.plus import plus_signature_groups
+    bases = plan.schema.bases
+    worst = 0.0
+    for group in plus_signature_groups(plan.schema,
+                                       plan.workload.cliques).values():
+        k = len(group[0])
+        pos = tuple(range(k))
+        axes = [bases[i] for i in group[0]]
+        # diag(Ψ Ψᵀ) per axis, measured (W Sub⁺ Γ) and marginalized (W 1/n)
+        meas = [((b.W @ b.sub_pinv @ b.Gamma) ** 2).sum(axis=1) for b in axes]
+        marg = [(b.W @ np.ones(b.n) / b.n) ** 2 for b in axes]
+        diags = []
+        for sub in subsets(pos):
+            d = np.ones(1)
+            for a in pos:
+                d = np.kron(d, meas[a] if a in sub else marg[a])
+            diags.append(d)
+        diags = np.stack(diags)                      # (2^k, query rows)
+        for c0 in range(0, len(group), chunk):
+            cs = group[c0:c0 + chunk]
+            sig2 = np.array([[plan.sigma2(tuple(c[j] for j in sub))
+                              for sub in subsets(pos)] for c in cs])
+            sd = np.sqrt(sig2 @ diags)
+            t = np.stack([exact[c] for c in cs]).reshape(
+                (len(cs),) + tuple(b.n for b in axes))
+            for a, b in enumerate(axes, start=1):
+                t = np.moveaxis(np.tensordot(t, b.W, axes=([a], [1])), -1, a)
+            got = np.stack([tables[c] for c in cs])
+            if got.shape != sd.shape or not np.all(np.isfinite(got)):
+                raise AssertionError(f"tables of {cs[0]}.. have shape "
+                                     f"{got.shape} or non-finite values")
+            worst = max(worst, float(np.max(np.abs(got - t.reshape(got.shape))
+                                            / sd)))
+    if not worst <= k_sigma:
+        raise AssertionError(f"an answer is {worst:.2f} sigma from its exact "
+                             f"value (bound {k_sigma})")
+    return worst
+
+
+def release_phase(name, plan, make_marginals, k_sigma, plus=False):
+    """One release on the card with the kernel counts reset just before it
+    and read just after; ``plus`` serves an RP+ plan with PlusEngine."""
     from repro_torch.engine import MarginalEngine
+    from repro_torch.engine.plus_engine import PlusEngine
     from repro_torch.kernels.kron_matvec.stats import (chain_stats,
                                                        reset_chain_stats)
     t0 = time.perf_counter()
@@ -258,7 +402,7 @@ def release_phase(name, plan, make_marginals, k_sigma):
     torch.cuda.reset_peak_memory_stats()
     reset_chain_stats()
     t0 = time.perf_counter()
-    eng = MarginalEngine(plan, device="cuda")
+    eng = (PlusEngine if plus else MarginalEngine)(plan, device="cuda")
     secs["engine"] = time.perf_counter() - t0
     for step in ("measure", "reconstruct"):
         def timed(*a, _fn=getattr(eng, step), _step=step, **k):
@@ -271,10 +415,13 @@ def release_phase(name, plan, make_marginals, k_sigma):
     tables, _meas = eng.release(margs, torch.Generator("cuda").manual_seed(SEED))
     torch.cuda.synchronize()
     counts = chain_stats()
+    peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    worst = check_tables(plan, tables, margs, k_sigma)
+    worst = (check_plus_tables if plus else check_tables)(plan, tables, margs,
+                                                          k_sigma)
     secs["check"] = time.perf_counter() - t0
-    cells = sum(plan.domain.n_cells(c) for c in plan.workload.cliques)
+    cells = sum(plan.schema.query_rows(c) if plus else plan.domain.n_cells(c)
+                for c in plan.workload.cliques)
     print(f"[{name}] closure {len(plan.cliques)} cliques, workload "
           f"{len(plan.workload.cliques)} marginals / {cells} cells, "
           f"{eng.stats.measure_signatures} measure + "
@@ -282,9 +429,58 @@ def release_phase(name, plan, make_marginals, k_sigma):
           f"fused chains {eng.stats.fused_chains}, per-axis chains "
           f"{eng.stats.fallback_chains}")
     print(f"[{name}] seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
-          + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          + f"; peak device memory {peak / 2**30:.2f} GiB")
     print(f"[{name}] worst table {worst:.3f} sigma (bound {k_sigma}); "
           f"launches {counts}")
+    return counts
+
+
+def phase_rplus_synth():
+    """[rplus-synth]: Synth-10^20, every attribute a range query, all
+    <=3-way, hierarchical strategy; 7 sigma over about 1.9e8 answers."""
+    from repro_torch.configs.synth_ranges import make
+    from repro_torch.core.plus import select_plus
+    from repro_torch.data.tabular import mixture_marginals
+    t0 = time.perf_counter()
+    dom, wk, schema = make(n=10, d=20, kmax=3, kind="range",
+                           strategy_mode="hier", device="cuda")
+    t1 = time.perf_counter()
+    plan = select_plus(wk, schema, 1.0, "sov", device="cuda")
+    print(f"[rplus-synth] schema {t1 - t0:.3f} s, select "
+          f"{time.perf_counter() - t1:.3f} s")
+    counts = release_phase("rplus-synth", plan, lambda: mixture_marginals(
+        dom, plan.cliques, 1e6, SEED), 7.0, plus=True)
+    if not (counts["fused_launches"] > 0 and counts["epilogue_launches"] > 0):
+        raise AssertionError(f"RP+ Synth release skipped the fused kernel or "
+                             f"its epilogue: {counts}")
+    return counts
+
+
+def phase_rplus_adult(adult):
+    """[rplus-adult]: the paper's section 9 prefix setting on Adult <=3-way
+    (attributes 0-4 prefix, p-Identity strategies), the [adult] records."""
+    from repro_torch.core import all_kway
+    from repro_torch.core.plus import PlusSchema, select_plus
+    from repro_torch.data.tabular import (marginals_from_records,
+                                          synthetic_records)
+    kinds = ["prefix" if i < 5 else "identity" for i in range(adult.n_attrs)]
+    t0 = time.perf_counter()
+    schema = PlusSchema.create(adult, kinds, strategy_mode="auto",
+                               device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plan = select_plus(all_kway(adult, 3, include_lower=True), schema, 1.0,
+                       "sov", device="cuda")
+    print(f"[rplus-adult] schema (opt_pidentity, 1000 Adam steps for each of "
+          f"3 distinct W) {t1 - t0:.3f} s, select "
+          f"{time.perf_counter() - t1:.3f} s")
+    counts = release_phase("rplus-adult", plan, lambda: marginals_from_records(
+        adult, plan.cliques, synthetic_records(adult, ADULT_RECORDS, SEED)),
+        6.0, plus=True)
+    if not (counts["fused_launches"] > 0 and counts["axis_launches"] > 0
+            and counts["epilogue_launches"] > 0):
+        raise AssertionError(f"RP+ Adult release skipped a kernel or the "
+                             f"epilogue: {counts}")
     return counts
 
 
@@ -327,10 +523,10 @@ def main() -> int:
     if not synth_counts["fused_launches"] > 0:
         raise AssertionError(f"Synth release skipped the fused kernel: {synth_counts}")
 
-    launches = {"fused_chain": adult_counts["fused_launches"]
-                + synth_counts["fused_launches"],
-                "kron_axis": adult_counts["axis_launches"]
-                + synth_counts["axis_launches"]}
+    rplus_counts = phase_rplus_synth(), phase_rplus_adult(adult)
+    counts = (adult_counts, synth_counts) + rplus_counts
+    launches = {"fused_chain": sum(c["fused_launches"] for c in counts),
+                "kron_axis": sum(c["axis_launches"] for c in counts)}
     sources = {"fused_chain": ("src/repro_torch/kernels/kron_matvec/csrc/fused_chain.cu",
                                "src/repro/kernels/kron_matvec/fused.py:262"),
                "kron_axis": ("src/repro_torch/kernels/kron_matvec/csrc/kron_axis.cu",

@@ -4,18 +4,41 @@ A plan's state is the domain's sizes, the workload (cliques and importance
 weights), the closure in its (len, lex) order and σ² over that closure.
 :func:`plan_from_arrays` rebuilds the port's :class:`~repro_torch.core.Plan`
 from exactly that, given as numpy arrays and tuples, so both packages can
-run one plan with identical σ².  It takes plain data, never a JAX object:
-the port imports nothing of the JAX package.
+run one plan with identical σ².  :func:`plus_plan_from_arrays` does the same
+for a ResidualPlanner+ plan, given besides each attribute's basic matrix W_i
+and strategy S_i.  They take plain data, never a JAX object: the port imports
+nothing of the JAX package.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.domain import Clique, Domain, MarginalWorkload, as_clique
 from repro_torch.core.plantable import PlanTable
+from repro_torch.core.plus import PlusPlan, PlusSchema, attr_basis, plan_table_plus
 from repro_torch.core.select import Plan
+
+
+def _workload(sizes, workload_cliques, weights) -> MarginalWorkload:
+    wk_cliques = tuple(as_clique(c) for c in workload_cliques)
+    w = np.asarray(weights, dtype=np.float64).reshape(-1)
+    if w.shape != (len(wk_cliques),):
+        raise ValueError(f"{w.shape[0]} weights for {len(wk_cliques)} cliques")
+    dom = Domain.create(list(sizes))
+    return MarginalWorkload(dom, wk_cliques, dict(zip(wk_cliques, w.tolist())))
+
+
+def _checked_sigma(table: PlanTable, closure_cliques, sigma) -> np.ndarray:
+    closure = [tuple(int(i) for i in c) for c in closure_cliques]
+    if closure != table.cliques:
+        raise ValueError("closure_cliques is not the workload's closure in "
+                         "(len, lex) order")
+    sig = np.asarray(sigma, dtype=np.float64).reshape(-1)
+    if sig.shape != (table.n,):
+        raise ValueError(f"sigma has {sig.shape[0]} entries, closure has {table.n}")
+    return sig.copy()
 
 
 def plan_from_arrays(sizes: Sequence[int],
@@ -29,22 +52,33 @@ def plan_from_arrays(sizes: Sequence[int],
     order.  Raises if ``closure_cliques`` is not the closure of the workload
     in the planner's order, or if ``sigma`` does not match it.
     """
-    wk_cliques = tuple(as_clique(c) for c in workload_cliques)
-    w = np.asarray(weights, dtype=np.float64).reshape(-1)
-    if w.shape != (len(wk_cliques),):
-        raise ValueError(f"{w.shape[0]} weights for {len(wk_cliques)} cliques")
-    dom = Domain.create(list(sizes))
-    workload = MarginalWorkload(dom, wk_cliques, dict(zip(wk_cliques, w.tolist())))
-    table = PlanTable.for_workload(workload)
-    closure = [tuple(int(i) for i in c) for c in closure_cliques]
-    if closure != table.cliques:
-        raise ValueError("closure_cliques is not the workload's closure in "
-                         "(len, lex) order")
-    sig = np.asarray(sigma, dtype=np.float64).reshape(-1)
-    if sig.shape != (table.n,):
-        raise ValueError(f"sigma has {sig.shape[0]} entries, closure has {table.n}")
-    return Plan(table, sig.copy(), "converted", pcost=table.pcost(sig),
+    table = PlanTable.for_workload(_workload(sizes, workload_cliques, weights))
+    sig = _checked_sigma(table, closure_cliques, sigma)
+    return Plan(table, sig, "converted", pcost=table.pcost(sig),
                 loss_value=float(np.dot(table.v, sig)))
+
+
+def plus_plan_from_arrays(sizes: Sequence[int],
+                          bases: Sequence[Tuple[np.ndarray, Optional[np.ndarray]]],
+                          workload_cliques: Sequence[Sequence[int]],
+                          weights: Sequence[float],
+                          closure_cliques: Sequence[Sequence[int]],
+                          sigma: Sequence[float],
+                          objective: str = "converted") -> PlusPlan:
+    """The port's PlusPlan for σ² ``sigma``, as :func:`plan_from_arrays`.
+
+    ``bases[i]`` is attribute i's ``(W_i, S_i)``, with ``S_i=None`` where the
+    strategy is W_i itself; the port rebuilds each basis with Algorithm 4
+    (:func:`~repro_torch.core.plus.attr_basis`).  ``loss_value`` is the SoV
+    of ``sigma``.
+    """
+    workload = _workload(sizes, workload_cliques, weights)
+    schema = PlusSchema(workload.domain,
+                        tuple(attr_basis(W, S) for W, S in bases))
+    table = plan_table_plus(workload, schema)
+    sig = _checked_sigma(table, closure_cliques, sigma)
+    return PlusPlan(table, sig, objective, pcost=table.pcost(sig),
+                    loss_value=float(np.dot(table.v, sig)), schema=schema)
 
 
 def plan_arrays(plan) -> tuple:
@@ -54,3 +88,11 @@ def plan_arrays(plan) -> tuple:
     return (list(wk.domain.sizes), [tuple(c) for c in cliques],
             np.array([wk.weight(c) for c in cliques]),
             [tuple(c) for c in plan.cliques], np.asarray(plan.sigma))
+
+
+def plus_plan_arrays(plan) -> tuple:
+    """The ``plus_plan_from_arrays`` arguments of an RP+ plan of either
+    package (its objective included)."""
+    sizes, wk, w, cl, sig = plan_arrays(plan)
+    bases = [(b.W, None if b.S is b.W else b.S) for b in plan.schema.bases]
+    return sizes, bases, wk, w, cl, sig, plan.objective

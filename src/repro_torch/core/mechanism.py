@@ -95,22 +95,28 @@ def noise_dtype() -> torch.dtype:
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def noise_offsets(plan: Plan) -> Dict[Clique, int]:
-    """Start of each clique's slice in the flat noise vector (plan order)."""
-    dom = plan.domain
+def noise_offsets(plan: Plan, cells=None) -> Dict[Clique, int]:
+    """Start of each clique's slice in the flat noise vector (plan order).
+
+    ``cells(A)`` is the number of noise values clique A draws: by default its
+    marginal's cells; ResidualPlanner+ passes the Γ column count.
+    """
+    cells = plan.domain.n_cells if cells is None else cells
     offs, pos = {}, 0
     for c in plan.cliques:
         offs[c] = pos
-        pos += dom.n_cells(c)
+        pos += cells(c)
     return offs
 
 
 def draw_noise(plan: Plan, gen: torch.Generator, device=None,
-               dtype=None) -> torch.Tensor:
+               dtype=None, cells=None) -> torch.Tensor:
     """The flat N(0, I) vector of every base mechanism, in ``plan.cliques``
-    order: ONE ``torch.randn`` from ``gen`` (which must live on ``device``)."""
+    order: ONE ``torch.randn`` from ``gen`` (which must live on ``device``),
+    ``cells(A)`` values per clique as in :func:`noise_offsets`."""
     dev = resolve_device(device)
-    total = sum(plan.domain.n_cells(c) for c in plan.cliques)
+    cells = plan.domain.n_cells if cells is None else cells
+    total = sum(cells(c) for c in plan.cliques)
     return torch.randn(total, generator=gen, device=dev,
                        dtype=noise_dtype() if dtype is None else dtype)
 

@@ -89,14 +89,18 @@ def embed_subset_answers(plan: Plan, measurements: Mapping[Clique, Measurement],
 
 
 def embed_group(plan: Plan, measurements: Mapping[Clique, Measurement],
-                group: Sequence[Clique], dtype=np.float32) -> np.ndarray:
+                group: Sequence[Clique], dtype=np.float32,
+                slot_dims: Optional[Sequence[int]] = None) -> np.ndarray:
     """(g, Π n_i) stack of :func:`embed_subset_answers` for a signature group.
 
     Same-signature cliques share every slot region, so each of the 2^k
     subset positions fills its region for the whole group with one stacked
-    copy instead of one small copy per clique.
+    copy instead of one small copy per clique.  ``slot_dims`` are the
+    per-axis slot counts r_i + 1 (default: the attribute sizes n_i, as
+    ``Sub_n`` has n − 1 rows; ResidualPlanner+ passes its own ranks).
     """
-    sizes = plan.domain.clique_sizes(group[0])
+    sizes = (plan.domain.clique_sizes(group[0]) if slot_dims is None
+             else tuple(slot_dims))
     g, k = len(group), len(sizes)
     x = np.zeros((g,) + tuple(sizes), dtype=dtype)
     pos = tuple(range(k))

@@ -63,31 +63,48 @@ class EngineStats:
 class ChainRegistry:
     """Chain-plan bookkeeping: one plan per (dims, signature) chain.
 
-    Subclasses provide ``self.stats`` (EngineStats) and their own warmup
-    loops over ``self._chain_plans``, whose values are
-    ``(ChainPlan, factors, batch)`` tuples.  The JAX package's autotuner and
-    roofline hooks are not ported yet.
+    Subclasses provide ``self.stats`` (EngineStats) and ``self.device``;
+    ``self._chain_plans`` maps each chain to a ``(ChainPlan, factors,
+    batch)`` tuple, the plan carrying the chain's epilogue.  The JAX
+    package's autotuner and roofline hooks are not ported yet.
     """
 
     _chain_plans: Dict[tuple, tuple]
 
     def _register_chain(self, factors: List, dims: Tuple[int, ...],
-                        batch: int) -> None:
-        cp = plan_chain(factors, dims, batch=batch)
+                        batch: int,
+                        epilogue: Optional[Sequence[Optional[str]]] = None
+                        ) -> None:
+        cp = plan_chain(factors, dims, batch=batch, epilogue=epilogue)
         key = (tuple(dims), cp.signature)
         if key not in self._chain_plans:
             self._chain_plans[key] = (cp, factors, batch)
             self.stats.bump("fused_chains" if cp.fused_ok else "fallback_chains")
 
+    def _warmup(self) -> None:
+        """Run every planned chain, epilogue included, once on zeros: builds
+        and loads the kernels and touches every launch shape the serving
+        path will use."""
+        for key, (cp, factors, batch) in self._chain_plans.items():
+            x = torch.zeros((batch, cp.n_in), dtype=torch.float32,
+                            device=self.device)
+            fused_chain_matvec(factors, x, key[0], epilogue=cp.epilogue)
+            self.stats.bump("compile_warmups")
+        torch.cuda.synchronize(self.device)
+
     def chain_plans(self) -> List[dict]:
         """Layout report: one row per planned chain (for ops/debugging)."""
         return [dict(dims=key[0], batch=batch, rows=cp.rows, buf=cp.buf,
-                     smem_bytes=cp.smem_bytes, fused=cp.fused_ok)
+                     smem_bytes=cp.smem_bytes, fused=cp.fused_ok,
+                     epilogue=cp.epilogue)
                 for key, (cp, _f, batch) in self._chain_plans.items()]
 
 
 class ReleaseServing:
     """The release surface of a serving engine."""
+
+    def _check_postprocess(self) -> None:
+        """Raise when this plan family's tables are not plain marginals."""
 
     def release(self, marginals, gen: torch.Generator,
                 postprocess: Optional[str] = None):
@@ -97,6 +114,7 @@ class ReleaseServing:
         ``"consistent"`` / ``"nonneg"`` postprocessing is not ported yet.
         """
         if postprocess is not None:
+            self._check_postprocess()
             raise NotImplementedError("release postprocessing is not ported "
                                       "yet (ROADMAP queue 1, item 11)")
         meas = self.measure(marginals, gen)
@@ -140,16 +158,6 @@ class MarginalEngine(ReleaseServing, ChainRegistry):
                                      dims, len(cliques))
         if precompile and self.use_kernel and self.device.type == "cuda":
             self._warmup()
-
-    def _warmup(self) -> None:
-        """Run every planned chain once on zeros: builds and loads the
-        kernels and touches every launch shape the serving path will use."""
-        for key, (cp, factors, batch) in self._chain_plans.items():
-            x = torch.zeros((batch, cp.n_in), dtype=torch.float32,
-                            device=self.device)
-            fused_chain_matvec(factors, x, key[0])
-            self.stats.bump("compile_warmups")
-        torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ serve
     def measure(self, marginals: Mapping[Clique, np.ndarray],

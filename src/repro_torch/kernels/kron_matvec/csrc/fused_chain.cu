@@ -36,6 +36,20 @@
 //
 // Summation order: k = 0 .. n-1, one fmaf per term, from 0 -- the same as
 // kron_axis.cu, so the two kernels agree bit for bit on the same chain.
+//
+// Epilogue.  An axis marked in `epi` gets an inclusive prefix sum along it
+// after the whole chain (the implicit form of the prefix matrix tril(1) that
+// ResidualPlanner+ reconstruction needs for prefix and range queries).  The
+// TPU kernel computes it as a contraction with an iota-built triangular ones
+// matrix on the MXU (fused.py: _tril_ones); here that would be O(n^2) work
+// for an O(n) scan, so each thread instead runs a serial scan over one line
+// of the row tensor (m_a elements at stride `post`), in place in the current
+// buffer, marked axes in axis order with __syncthreads() between them.
+// Shared memory does not grow.  The scan adds from index 0 upward in float32;
+// torch.cumsum (the plain version) sums in another order on the card and in
+// double on the CPU, so the two agree to a tolerance, not bit for bit.  The
+// scan is O(rows * w_out) adds per axis against the chain's O(rows * w * n)
+// FMAs, so it leaves the bound of the launch as it was.
 
 #include <cuda_runtime.h>
 
@@ -49,6 +63,7 @@ struct Chain {
   int n[kMaxAxes];     // input size of each axis
   int m[kMaxAxes];     // output size of each axis (n for an identity axis)
   int off[kMaxAxes];   // offset of S_i in the packed factors, -1: identity
+  int epi[kMaxAxes];   // 1: inclusive prefix sum along the axis after the chain
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -98,6 +113,30 @@ fused_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
     dst = tmp;
   }
 
+  // The buffer now holds (nr, m_1, ..., m_k).  Scan each marked axis (an
+  // identity axis too): one thread per (row, pre, post) line.
+  for (int a = 0; a < ch.k; ++a) {
+    if (!ch.epi[a]) continue;
+    int pre = 1, post = 1;
+    for (int j = 0; j < a; ++j) pre *= ch.m[j];
+    for (int j = a + 1; j < ch.k; ++j) post *= ch.m[j];
+    const int n = ch.m[a];
+    const int pp = pre * post;
+    for (int i = threadIdx.x; i < nr * pp; i += blockDim.x) {
+      const int r = i / pp;
+      const int e = i - r * pp;
+      const int p = e / post;
+      const int t = e - p * post;
+      float* line = src + r * buf + p * n * post + t;
+      float acc = 0.f;
+      for (int k = 0; k < n; ++k) {
+        acc += line[k * post];
+        line[k * post] = acc;
+      }
+    }
+    __syncthreads();
+  }
+
   float* yout = y + r0 * w_out;
   for (int i = threadIdx.x; i < nr * w_out; i += blockDim.x) {
     const int r = i / w_out;
@@ -109,11 +148,12 @@ fused_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
 
 extern "C" {
 
-// n, m, off: host arrays of k ints (fused.py packs them).  Launches on
+// n, m, off, epi: host arrays of k ints (fused.py packs them).  Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 int fused_chain_launch(const float* x, float* y, const float* f, long long B,
                        int k, const int* n, const int* m, const int* off,
-                       int nf, int rows, int buf, void* stream) {
+                       const int* epi, int nf, int rows, int buf,
+                       void* stream) {
   if (k < 1 || k > kMaxAxes || rows < 1) return cudaErrorInvalidValue;
   if (B <= 0) return 0;
   Chain ch;
@@ -123,6 +163,7 @@ int fused_chain_launch(const float* x, float* y, const float* f, long long B,
     ch.n[a] = n[a];
     ch.m[a] = m[a];
     ch.off[a] = off[a];
+    ch.epi[a] = epi[a];
     w_in *= n[a];
     w_out *= m[a];
   }

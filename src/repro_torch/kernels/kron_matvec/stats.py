@@ -2,9 +2,11 @@
 
 Plain integers, bumped by the host-side wrappers: ``fused_launches`` and
 ``axis_launches`` each time a CUDA kernel is launched (and only then — the
-plain PyTorch versions that serve CPU tensors count nothing), and
-``fused_chains`` / ``fallback_chains`` each time ``fused_chain_matvec`` routes
-a chain to the fused kernel or to the per-axis fallback, on any device.  A run
+plain PyTorch versions that serve CPU tensors count nothing), with
+``epilogue_launches`` counting the fused launches that ran a ``'cumsum'``
+epilogue in the kernel; ``fused_chains`` / ``fallback_chains`` each time
+``fused_chain_matvec`` routes a chain to the fused kernel or to the per-axis
+fallback, and ``epilogue_axes`` the epilogue axes it applied, on any device.  A run
 resets them, drives its path and reads them, to show which kernels served it.
 """
 from __future__ import annotations
@@ -16,6 +18,8 @@ _FIELDS = (
     "axis_launches",    # kron_axis.cu launches
     "fused_chains",     # chains routed to the fused kernel
     "fallback_chains",  # chains routed to the per-axis kernel
+    "epilogue_axes",    # 'cumsum' epilogue axes applied, on any route
+    "epilogue_launches",  # fused_chain.cu launches that ran an epilogue
 )
 
 

@@ -16,9 +16,13 @@ import torch
 
 from repro_torch.core import (Domain, all_kway, exact_marginals_from_x,
                               measure, select_sum_of_variances)
+from repro_torch.core.plus import (PlusSchema, measure_plus_np,
+                                   reconstruct_plus, select_plus)
 from repro_torch.core.reconstruct import u_chain_factors
 from repro_torch.core.residual import sub_matrix
+from repro_torch.core.domain import MarginalWorkload
 from repro_torch.engine import MarginalEngine
+from repro_torch.engine.plus_engine import PlusEngine
 from repro_torch.kernels.kron_matvec import (chain_stats, fused_chain_matvec,
                                              fused_chain_matvec_plain,
                                              kron_axis_matvec,
@@ -109,9 +113,12 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         kron_axis_matvec(s.double(), torch.ones((1, 3, 1), device=cuda).double())
     with pytest.raises(ValueError):
         kron_axis_matvec(s, torch.ones((1, 3, 1)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="slice c"):
         fused_chain_matvec([sub_matrix(3)], torch.ones((1, 3), device=cuda),
-                           [3], epilogue=["cumsum"])
+                           [3], compute_dtype="bfloat16")
+    with pytest.raises(ValueError):
+        fused_chain_matvec([sub_matrix(3)], torch.ones((1, 3), device=cuda),
+                           [3], epilogue=["cummax"])
 
 
 def test_batched_and_loop_measure_bit_identical_on_card(cuda):
@@ -139,3 +146,105 @@ def test_engine_release_on_card_within_six_sigma(cuda):
     assert eng.stats.fallback_chains > 0
     for c, var in zip(plan.workload.cliques, plan.variances_array()):
         assert np.abs(tables[c] - margs[c]).max() <= 6 * math.sqrt(var), c
+
+
+# (dims, factor shapes (None: identity), batch, epilogue, smem_budget, launches):
+# fused chains with the scan in the kernel, one on an identity-factor axis,
+# and a chain sent to the per-axis route (budget 16 bytes) whose epilogue
+# is torch.cumsum after the per-axis kernel.
+EPILOGUE_CASES = [
+    ([10, 10, 10], [(10, 10)] * 3, 1140, ["cumsum"] * 3, None, (1, 0)),
+    ([7, 5], [None, (6, 5)], 33, ["cumsum", None], None, (1, 0)),
+    ([4, 100, 3], [(4, 4), None, (2, 3)], 9, [None, "cumsum", "cumsum"], None,
+     (1, 0)),
+    ([9, 8, 7], [(9, 9), (8, 8), None], 5, ["cumsum", None, "cumsum"], 16,
+     (0, 2)),
+]
+
+
+@pytest.mark.parametrize("dims,shapes,batch,epi,budget,launches",
+                         EPILOGUE_CASES)
+def test_fused_kernel_epilogue_matches_plain(cuda, dims, shapes, batch, epi,
+                                             budget, launches):
+    """The scan adds from index 0 in float32; torch.cumsum sums in another
+    order on the card: rel 2e-5 of max|plain|, not bit for bit."""
+    rng = np.random.default_rng(7)
+    facs = [None if sh is None else rng.standard_normal(sh).astype(np.float32)
+            for sh in shapes]
+    x = torch.as_tensor(rng.standard_normal((batch, math.prod(dims))),
+                        dtype=torch.float32, device=cuda)
+    reset_chain_stats()
+    got = fused_chain_matvec(facs, x, dims, epilogue=epi, smem_budget=budget)
+    st = chain_stats()
+    assert (st["fused_launches"], st["axis_launches"]) == launches
+    assert st["epilogue_launches"] == launches[0]
+    assert st["epilogue_axes"] == sum(op is not None for op in epi)
+    want = fused_chain_matvec_plain(facs, x, dims, epi)
+    assert got.shape == want.shape
+    assert _rel(got, want) < REL
+
+
+def test_epilogue_without_a_live_factor_launches_nothing(cuda):
+    x = torch.randn((4, 30), device=cuda)
+    reset_chain_stats()
+    got = fused_chain_matvec([None, None], x, [5, 6], epilogue=[None, "cumsum"])
+    assert chain_stats()["fused_launches"] == 0
+    assert torch.equal(got, torch.cumsum(x.view(4, 5, 6), 2).view(4, 30))
+
+
+def test_no_epilogue_stays_bit_identical(cuda):
+    """An all-None epilogue is the plain chain: fused == per-axis bit for bit,
+    and no launch counts as an epilogue launch."""
+    rng = np.random.default_rng(8)
+    dims = (10, 7, 12)
+    facs = [rng.standard_normal((n, n)).astype(np.float32) for n in dims]
+    x = torch.as_tensor(rng.standard_normal((41, math.prod(dims))),
+                        dtype=torch.float32, device=cuda)
+    reset_chain_stats()
+    a = fused_chain_matvec(facs, x, dims, epilogue=(None,) * 3)
+    b = fused_chain_matvec(facs, x, dims)
+    c = fused_chain_matvec(facs, x, dims, smem_budget=16)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert chain_stats()["epilogue_launches"] == 0
+
+
+class _Replay:
+    def __init__(self, draws, order):
+        self._queue = [draws[c] for c in order]
+
+    def standard_normal(self, n):
+        z = self._queue.pop(0)
+        assert z.shape == (n,)
+        return z
+
+
+def test_plus_engine_on_card_matches_oracles(cuda):
+    """A mixed range/identity/prefix schema with a p-Identity strategy and a
+    (40, 40, 40) chain that takes the per-axis route: measure and
+    reconstruct on the card against the float64 oracles, fed the card's
+    noise; both kernels and the in-kernel epilogue launched."""
+    dom = Domain.create([40, 40, 40, 5, 6])
+    kinds = ["prefix", "prefix", "identity", "range", "identity"]
+    schema = PlusSchema.create(dom, kinds, strategy_mode="auto", device=cuda)
+    wk = MarginalWorkload(dom, ((0, 1, 2), (3, 4), (1, 3), (0, 3, 4), (2,)))
+    plan = select_plus(wk, schema, 1.0, "sov", device=cuda)
+    rng = np.random.default_rng(9)
+    margs = {c: rng.integers(0, 50, dom.n_cells(c)).astype(float)
+             for c in plan.cliques}
+    reset_chain_stats()
+    eng = PlusEngine(plan, device=cuda)
+    meas = eng.measure(margs, torch.Generator(cuda).manual_seed(3))
+    tables = eng.reconstruct(meas)
+    torch.cuda.synchronize()
+    st = chain_stats()
+    assert st["fused_launches"] > 0 and st["axis_launches"] > 0
+    assert st["epilogue_launches"] > 0
+    oracle = measure_plus_np(plan, margs, _Replay(
+        eng.noise_draws(torch.Generator(cuda).manual_seed(3)), plan.cliques))
+    for c in plan.cliques:
+        scale = max(np.abs(oracle[c].omega).max(), 1.0)
+        assert np.abs(meas[c].omega - oracle[c].omega).max() / scale < 1e-4, c
+    for c in wk.cliques:
+        want = reconstruct_plus(plan, oracle, c)
+        scale = max(np.abs(want).max(), 1.0)
+        assert np.abs(tables[c] - want).max() / scale < 1e-4, c

@@ -24,7 +24,8 @@ from repro.kernels.kron_matvec.ops import \
     residual_measure_kernel as jax_residual_measure
 
 from repro_torch.core.kron import kron_matvec, kron_matvec_batched
-from repro_torch.kernels.kron_matvec import (chain_stats, fused_chain_matvec,
+from repro_torch.kernels.kron_matvec import (apply_epilogue, chain_stats,
+                                             fused_chain_matvec,
                                              kron_axis_matvec,
                                              kron_matvec_kernel, plan_chain,
                                              reset_chain_stats,
@@ -149,11 +150,18 @@ def test_wide_chain_takes_the_per_axis_path(rng):
 
 
 def test_unported_options_raise():
+    """Narrow compute dtypes are still unported; the 'cumsum' epilogue is
+    held (below) and only an unknown op or a wrong length raises."""
     x = torch.ones((1, 3))
-    with pytest.raises(NotImplementedError):
-        fused_chain_matvec([sub_matrix(3)], x, [3], epilogue=["cumsum"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="slice c"):
         fused_chain_matvec([sub_matrix(3)], x, [3], compute_dtype="bfloat16")
+    with pytest.raises(ValueError):
+        fused_chain_matvec([sub_matrix(3)], x, [3], epilogue=["cummax"])
+    with pytest.raises(ValueError):
+        fused_chain_matvec([sub_matrix(3)], x, [3], epilogue=["cumsum", None])
+    got = fused_chain_matvec([sub_matrix(3)], x, [3], epilogue=["cumsum"])
+    assert torch.equal(got, torch.cumsum(fused_chain_matvec([sub_matrix(3)],
+                                                            x, [3]), 1))
     with pytest.raises(ValueError):
         fused_chain_matvec([sub_matrix(3)], torch.ones((1, 6)), [3, 2, 1])
     with pytest.raises(TypeError):
@@ -180,3 +188,55 @@ def test_torch_kron_matvec_matches_jax(rng):
     want = np.asarray(jax_kron_matvec_batched(facs, jnp.asarray(xb), dims))
     got = kron_matvec_batched(facs, _t(xb), dims)
     assert tuple(got.shape) == want.shape and _rel(got, want) < REL
+
+
+# (factors, dims, batch, epilogue, smem_budget): a fused-size chain, a chain
+# that takes the per-axis fallback (budget 16 bytes, as JAX's vmem_budget=16),
+# an epilogue on an identity-factor axis, and an all-identity chain.
+EPILOGUE_CASES = [
+    ("fused", [(5, 4), (4, 4), (6, 3)], [4, 4, 3], 7, ["cumsum"] * 3, None),
+    ("fused-mixed", [None, (6, 5)], [3, 5], 9, ["cumsum", None], None),
+    ("fallback", [(5, 4), None, (3, 3)], [4, 3, 3], 5,
+     [None, "cumsum", "cumsum"], 16),
+    ("no-live-factor", [None, None], [4, 6], 3, [None, "cumsum"], None),
+]
+
+
+@pytest.mark.parametrize("name,shapes,dims,batch,epi,budget", EPILOGUE_CASES,
+                         ids=[c[0] for c in EPILOGUE_CASES])
+def test_fused_chain_epilogue_matches_jax(name, shapes, dims, batch, epi,
+                                          budget, rng):
+    facs = [None if sh is None else rng.standard_normal(sh) for sh in shapes]
+    x = rng.standard_normal((batch, math.prod(dims))).astype(np.float32)
+    want = np.asarray(jax_fused(facs, x, dims, interpret=True, epilogue=epi,
+                                vmem_budget=budget))
+    reset_chain_stats()
+    got = fused_chain_matvec(facs, _t(x), dims, epilogue=epi,
+                             smem_budget=budget)
+    assert tuple(got.shape) == want.shape
+    assert _rel(got, want) < REL
+    st = chain_stats()
+    assert st["epilogue_axes"] == sum(op is not None for op in epi)
+    assert st["fallback_chains"] == (name == "fallback")
+    assert st["fused_launches"] == st["epilogue_launches"] == 0   # CPU
+
+
+def test_apply_epilogue_is_cumsum_on_marked_axes(rng):
+    y = rng.standard_normal((2, 3, 4, 5))
+    got = apply_epilogue(torch.as_tensor(y).reshape(2, -1), (3, 4, 5),
+                         ("cumsum", None, "cumsum"))
+    want = np.cumsum(np.cumsum(y, axis=1), axis=3).reshape(2, -1)
+    assert np.allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    same = torch.ones((2, 6))
+    assert apply_epilogue(same, (2, 3), (None, None)) is same
+
+
+def test_plan_chain_carries_the_epilogue():
+    facs = [sub_matrix(10)] * 3
+    plain = plan_chain(facs, [10, 10, 10], batch=1140)
+    epi = plan_chain(facs, [10, 10, 10], batch=1140,
+                     epilogue=("cumsum",) * 3)
+    assert plain.epilogue == (None,) * 3 and epi.epilogue == ("cumsum",) * 3
+    assert (epi.rows, epi.smem_bytes, epi.fused_ok) == \
+        (plain.rows, plain.smem_bytes, plain.fused_ok)   # scan in place
+    assert epi.signature != plain.signature
