@@ -11,8 +11,11 @@ Phases, in order; any failure exits non-zero:
    main path's shapes (rel 2e-5 of max|plain|), and time kernel, plain
    version and one torch.einsum call for the same function with CUDA events
    (followed by torch.cumsum on the marked axes for the chains with the
-   ResidualPlanner+ 'cumsum' epilogue).  Then check a small release against
-   the float64 host oracles.
+   ResidualPlanner+ 'cumsum' epilogue), and the narrow kernel (bf16 and
+   fp16 operands, float32 sums) on Synth-10^100's 3-way reconstruct chain
+   against its narrow plain version (rel 1e-2 / 2e-3 of max|plain|), its
+   yardstick an einsum on operands of the same type.  Then check a small
+   release against the float64 host oracles.
 3. Adult, all <=3-way marginals: select_sum_of_variances -> MarginalEngine
    (device="cuda") -> release, marginals from seeded synthetic records.
    Every table within 6 sigma of the exact marginal; both kernels launched.
@@ -27,7 +30,21 @@ Phases, in order; any failure exits non-zero:
    Adult <=3-way, attributes 0-4 prefix queries with p-Identity strategies
    (strategy_mode="auto"), the rest identity, on the [adult] records; every
    answer within 6 sigma; both kernels and the in-kernel epilogue launched.
-7. Print the kernels line and, last, {"ok": true, "device": {...}}.
+7. [autotune] the Synth-10^100 and Adult chain groups pretuned in measure
+   mode (float32, bfloat16 and float16 offered): each pick against the cost
+   model's first pick; then Synth's two 3-way chains' device times under
+   REPRO_KERNEL_AUTOTUNE=off and =model, three alternated runs each (the
+   median under model within 1.1x of the median under off), and the Adult
+   release's device time under each mode.
+8. [adult-bf16] the Adult <=3-way release with
+   REPRO_KERNEL_COMPUTE_DTYPES=bfloat16: measure chains at float32,
+   reconstruct chains on the fused kernel at bf16 (narrow launches > 0),
+   every table within rel 3e-2 of its group's max |float32 table|.
+9. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+   the per-axis kernel) and, last, {"ok": true, "device": {...}}.
+
+The main path runs the autotuner in its default mode (model) from an empty
+cache under build/; the tuner's picks go to build/autotune_picks.json.
 
 It imports torch, numpy and the port only.  Without CUDA it exits non-zero
 before printing any result.
@@ -46,9 +63,11 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-MEM_BW = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
-FP32_PEAK = 67e12     # H100 SXM fp32 outside the tensor cores, FLOP/s
 REL_TOL = 2e-5        # of max|plain|: fmaf vs separate mul/add rounding
+# of max|narrow plain|: the same rounding points, JAX-parity bounds
+NARROW_TOL = {"bfloat16": 1e-2, "float16": 2e-3}
+NARROW_NAME = {"bfloat16": "fused_chain_bf16", "float16": "fused_chain_fp16"}
+BF16_RELEASE_TOL = 3e-2   # of a group's max |fp32 table|
 SYNTH_D = 100
 ADULT_RECORDS = 48842  # rows of the Adult data set
 SEED = 0
@@ -59,6 +78,16 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature now, as
+    nvidia-smi reads them (sampled right after a timed run)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+                          "power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout
+    return out.strip().splitlines()[0] if out.strip() else "not read"
 
 
 def time_ms(fn, reps: int) -> float:
@@ -99,27 +128,30 @@ def device_ms(fn, reps: int):
     return kern / 1e3 / reps, copy / 1e3 / reps
 
 
-def chain_work(factors, dims, batch, epilogue=()):
-    """(bytes, FLOP) of one fused launch: each row read once and written
-    once, the factors read once; 2·m·n FLOP per output of every live axis
+def card_spec():
+    """The cost model's row of this card: the memory and fp32 rates every
+    bound below uses (repro_torch/roofline/cost_model.py)."""
+    from repro_torch.roofline import detect_device
+    return detect_device("cuda")
+
+
+def chain_work(factors, dims, batch, epilogue=(), factor_itemsize=4):
+    """(bytes, FLOP) of one fused launch, counted as the cost model counts
+    them: each float32 row read once and written once, the factors read
+    once at their operand size; 2·m·n FLOP per output of every live axis
     and one add per output of every 'cumsum' axis."""
-    cur = list(dims)
-    flops = 0
-    for axis, s in enumerate(factors):
-        if s is None:
-            continue
-        m, n = s.shape
-        flops += 2 * math.prod(cur[:axis]) * m * n * math.prod(cur[axis + 1:])
-        cur[axis] = m
-    flops += math.prod(cur) * sum(op is not None for op in epilogue)
-    nbytes = 4 * (batch * (math.prod(dims) + math.prod(cur))
-                  + sum(s.size for s in factors if s is not None))
-    return nbytes, batch * flops
+    from repro_torch.roofline import chain_bytes, chain_flops
+    fshapes = [None if s is None else s.shape for s in factors]
+    return (chain_bytes(dims, fshapes, batch, factor_itemsize),
+            batch * chain_flops(dims, fshapes, epilogue))
 
 
 def bound(nbytes, flops):
-    """(least ms, what bounds it) at the card's memory and fp32 rates."""
-    t_mem, t_ops = nbytes / MEM_BW * 1e3, flops / FP32_PEAK * 1e3
+    """(least ms, what bounds it) at the card's memory and fp32 rates (the
+    narrow kernel accumulates with fp32 FMAs too)."""
+    spec = card_spec()
+    t_mem = nbytes / spec.hbm_bw * 1e3
+    t_ops = flops / spec.peak_flops_f32 * 1e3
     return max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
@@ -189,7 +221,14 @@ def phase_kernels(card):
     cumsum3 = ("cumsum",) * 3
     # (kernel, label, factors, dims, batch, epilogue, route): route "fused"
     # must fit the fused kernel, "axis" must not (the per-axis kernel, then
-    # torch.cumsum for an epilogue).
+    # torch.cumsum for an epilogue).  The narrow cases pass their operand
+    # type explicitly (the tuner serves it only to reconstruction chains
+    # when REPRO_KERNEL_COMPUTE_DTYPES offers it, as in [adult-bf16]).
+    recon3 = u_chain_factors(synth3, (0, 1, 2))
+    narrow = [(NARROW_NAME[cd], "Synth-10^%d 3-way reconstruct chain at %s%s"
+               % (SYNTH_D, cd, ", cumsum on 3 axes" if epi else ""),
+               recon3, (10, 10, 10), n_cliques, epi, "fused")
+              for cd in ("bfloat16", "float16") for epi in ((), cumsum3)]
     cases = [
         ("fused_chain", "Synth-10^%d 3-way measure chain" % SYNTH_D,
          [sub_matrix(10)] * 3, (10, 10, 10), 2 * n_cliques, (), "fused"),
@@ -207,16 +246,22 @@ def phase_kernels(card):
          (100, 100, 100), 1, cumsum3, "axis"),
         ("kron_axis", "Adult (100,100,100) measure chain, 3 launches",
          [sub_matrix(100)] * 3, (100, 100, 100), 2, (), "axis"),
-    ]
+    ] + narrow
     rows = []
     for name, label, facs, dims, batch, epi, route in cases:
+        cd = next((k for k, v in NARROW_NAME.items() if v == name), None)
         s_facs = [None if s is None else np.asarray(s, np.float32) for s in facs]
         s_dev = [None if s is None else torch.as_tensor(s, device=dev)
                  for s in s_facs]
         x = torch.randn((batch, math.prod(dims)), generator=gen, device=dev)
-        if plan_chain(s_facs, dims, batch=batch).fused_ok != (route == "fused"):
+        if plan_chain(s_facs, dims, batch=batch, compute_dtype=cd or "float32"
+                      ).fused_ok != (route == "fused"):
             raise AssertionError(f"{label} does not take the {route} route")
-        if name == "fused_chain":
+        if cd is not None:
+            kernel = lambda: fused_chain_matvec(  # noqa: E731
+                s_facs, x, dims, epilogue=epi or None, compute_dtype=cd)
+            bound_ms, bound_by = bound(*chain_work(s_facs, dims, batch, epi, 2))
+        elif name == "fused_chain":
             kernel = lambda: fused_chain_matvec(  # noqa: E731
                 s_facs, x, dims, epilogue=epi or None)
             bound_ms, bound_by = bound(*chain_work(s_facs, dims, batch, epi))
@@ -233,19 +278,30 @@ def phase_kernels(card):
                 nbytes = 4 * (L * n * R + m * n + L * m * R)
                 flops = 2 * L * m * n * R
                 bound_ms += bound(nbytes, flops)[0]
-                t_mem += nbytes / MEM_BW * 1e3
-                t_ops += flops / FP32_PEAK * 1e3
+                t_mem += nbytes / card_spec().hbm_bw * 1e3
+                t_ops += flops / card_spec().peak_flops_f32 * 1e3
                 cur[axis] = m
             bound_by = "operations" if t_ops >= t_mem else "bytes"
-        plain = lambda: fused_chain_matvec_plain(s_facs, x, dims, epi)  # noqa: E731
-        if epi:
-            library = lambda: einsum_cumsum_chain(s_dev, x, dims, epi)  # noqa: E731
+        plain = lambda: fused_chain_matvec_plain(  # noqa: E731
+            s_facs, x, dims, epi, cd or "float32")
+        if cd is not None:   # the yardstick on operands of the same type
+            tdt = getattr(torch, cd)
+            s_dev = [None if s is None else s.to(tdt) for s in s_dev]
+            x_lib = x.to(tdt)
         else:
-            library = lambda: einsum_chain(s_dev, x, dims)  # noqa: E731
+            x_lib = x
+        if epi:
+            library = lambda: einsum_cumsum_chain(  # noqa: E731
+                s_dev, x_lib, dims, epi)
+        else:
+            library = lambda: einsum_chain(s_dev, x_lib, dims)  # noqa: E731
         reset_chain_stats()
         got = kernel()
         torch.cuda.synchronize()
         st = chain_stats()
+        if cd is not None and not (st["fused_launches"] == 1
+                                   and st["narrow_launches"] == 1):
+            raise AssertionError(f"{label}: not one narrow fused launch: {st}")
         if epi and route == "fused" and not (st["fused_launches"] == 1
                                              and st["epilogue_launches"] == 1):
             raise AssertionError(f"{label}: the epilogue was not in the "
@@ -258,19 +314,22 @@ def phase_kernels(card):
         torch.cuda.synchronize()
         err = rel_err(got, want)
         abs_err = float((got - want).abs().max())
-        lib_err = rel_err(lib, want)
+        lib_err = rel_err(lib.float(), want)
+        tol = REL_TOL if cd is None else NARROW_TOL[cd]
         reps = 20 if batch > 1000 else 50
         ms, plain_ms, lib_ms = (time_ms(kernel, reps), time_ms(plain, reps),
                                 time_ms(library, reps))
         dev_ms, copy_ms = device_ms(kernel, reps)
+        clk = clocks()
         lib_name = "einsum+cumsum" if epi else "einsum"
         dev_txt = ("not measured" if dev_ms is None else
                    f"{dev_ms:.4f} ms in kernels + {copy_ms:.4f} ms in copies")
-        print(f"[kernels] {name} | {label}: rel err {err:.3e} ({lib_name} "
+        print(f"[kernels] {name} | {label}: rel err {err:.3e} (bound {tol}, "
+              f"bit-identical {bool(torch.equal(got, want))}; {lib_name} "
               f"{lib_err:.3e}), kernel {ms:.4f} ms (device: {dev_txt}), plain "
               f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}) | {card}")
-        if not err <= REL_TOL:
+              f"{bound_ms:.4f} ms ({bound_by}); clocks {clk} | {card}")
+        if not err <= tol:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {label}: rel err {err:.3e}")
         rows.append(dict(name=name, case=label, max_abs_err=abs_err,
@@ -278,8 +337,8 @@ def phase_kernels(card):
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=lib_ms, device_kernel_ms=dev_ms,
                          device_copy_ms=copy_ms, epilogue=list(epi),
-                         path=route))
-        del x, got, want, lib
+                         path=route, compute_dtype=cd or "float32"))
+        del x, x_lib, got, want, lib
         torch.cuda.empty_cache()
     return rows
 
@@ -484,6 +543,227 @@ def phase_rplus_adult(adult):
     return counts
 
 
+def engine_chains(plan):
+    """(factors, dims, batch, epilogue, role) of every chain MarginalEngine
+    registers for ``plan``: the tuner's chain groups."""
+    from repro_torch.core.mechanism import signature_groups
+    from repro_torch.core.reconstruct import u_chain_factors
+    from repro_torch.core.residual import sub_matrix
+    out = []
+    for dims, cl in signature_groups(plan.domain, plan.cliques).items():
+        if dims:
+            out.append(([sub_matrix(n) for n in dims], dims, 2 * len(cl),
+                        None, "measure"))
+    for dims, cl in signature_groups(plan.domain, plan.workload.cliques).items():
+        if dims:
+            out.append((u_chain_factors(plan.domain, cl[0]), dims, len(cl),
+                        None, "reconstruct"))
+    return out
+
+
+def fresh_tuning(name):
+    """An empty tuning cache directory under build/ and an empty registry,
+    so that no earlier pick can hide the tuner."""
+    import tempfile
+    from repro_torch.kernels.autotune import reset_registry
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = tempfile.mkdtemp(
+        prefix=f"autotune_{name}_", dir=root)
+    reset_registry()
+
+
+def phase_autotune(card, groups, adult):
+    """[autotune]: pretune the Synth-10^100 and Adult chain groups in measure
+    mode (float32, bfloat16 and float16 offered); each group's pick against
+    the model's first pick.  Then the device times of Synth's two 3-way
+    chains under REPRO_KERNEL_AUTOTUNE=off and =model.  Returns the kernel
+    counts of the pretuning (the tuned path's own launches)."""
+    from repro_torch.kernels.autotune import pretune, tune_chain
+    from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    dtypes = ("float32", "bfloat16", "float16")
+    fresh_tuning("measure")
+    picks, counts = [], None
+    reset_chain_stats()
+    for gname, chains in groups:
+        t0 = time.perf_counter()
+        first = [tune_chain(f, d, b, e, dtypes=dtypes, device="cuda",
+                            mode="model", persist=False)
+                 for f, d, b, e, _ in chains]
+        got = pretune([(f, d, b, e) for f, d, b, e, _ in chains],
+                      device="cuda", mode="measure", dtypes=dtypes)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        same = 0
+        for (f, d, b, e, role), m, g in zip(chains, first, got):
+            agree = (m.rows, m.compute_dtype, m.fused) == \
+                (g.rows, g.compute_dtype, g.fused)
+            same += agree
+            picks.append(dict(group=gname, dims=list(d), batch=b, role=role,
+                              rows=g.rows, compute_dtype=g.compute_dtype,
+                              fused=g.fused, model_rows=m.rows,
+                              model_dtype=m.compute_dtype,
+                              model_fused=m.fused,
+                              predicted_ms=m.predicted_s * 1e3,
+                              measured_ms=g.predicted_s * 1e3,
+                              model_first=agree))
+            if gname.startswith("synth"):
+                print(f"[autotune] {gname} {role} {tuple(d)} x {b}: measured "
+                      f"pick rows {g.rows} {g.compute_dtype} "
+                      f"{'fused' if g.fused else 'per-axis'} {g.predicted_s * 1e3:.4f} ms; "
+                      f"model pick rows {m.rows} {m.compute_dtype} "
+                      f"{'fused' if m.fused else 'per-axis'} predicted "
+                      f"{m.predicted_s * 1e3:.4f} ms | {card}")
+        mine = [p for p in picks if p["group"] == gname]
+        by = {}
+        for p in mine:
+            k = f"{p['compute_dtype']}/{'fused' if p['fused'] else 'per-axis'}"
+            by[k] = by.get(k, 0) + 1
+        print(f"[autotune] {gname}: {len(mine)} groups tuned in {secs:.3f} s; "
+              f"picks {by}; measured winner was the model's first pick for "
+              f"{same} of {len(mine)}; sum of predicted "
+              f"{sum(p['predicted_ms'] for p in mine):.3f} ms vs measured "
+              f"{sum(p['measured_ms'] for p in mine):.3f} ms")
+    counts = chain_stats()
+    print(f"[autotune] launches while tuning: {counts}")
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "autotune_picks.json"), "w") as fh:
+        json.dump(dict(card=card, picks=picks), fh, indent=1)
+
+    # model mode must not slow the main path: Synth's two 3-way chains
+    from repro_torch.core.reconstruct import u_chain_factors
+    from repro_torch.core.residual import sub_matrix
+    from repro_torch.data.tabular import synth_domain
+    n3 = math.comb(SYNTH_D, 3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mode_ms = {}
+    for label, facs, batch in (
+            ("measure", [sub_matrix(10)] * 3, 2 * n3),
+            ("reconstruct", u_chain_factors(synth_domain(10, 3), (0, 1, 2)), n3)):
+        x = torch.randn((batch, 1000), generator=gen, device="cuda")
+        times, clks = {"off": [], "model": []}, []
+        for mode in ("off", "model", "model", "off", "off", "model"):
+            os.environ["REPRO_KERNEL_AUTOTUNE"] = mode
+            fresh_tuning("modes")
+            call = lambda: fused_chain_matvec(  # noqa: E731,B023
+                facs, x, (10, 10, 10), allow_narrow=label == "reconstruct")
+            dev, _ = device_ms(call, 10)
+            times[mode].append(time_ms(call, 10) if dev is None else dev)
+            clks.append(clocks())
+        os.environ.pop("REPRO_KERNEL_AUTOTUNE")
+        # medians of three alternated runs: one run can land on a slow
+        # moment of the card (seen: 6.1 ms beside 4.9 ms for one launch)
+        off, model = (sorted(times[m])[1] for m in ("off", "model"))
+        mode_ms[label] = (off, model)
+        print(f"[autotune] Synth-10^{SYNTH_D} 3-way {label} chain device time: "
+              f"off {off:.4f} ms, model {model:.4f} ms (ratio {model / off:.3f}; "
+              f"runs {times}; clocks after each run {clks}) | {card}")
+        if not model <= 1.1 * off:
+            raise AssertionError(f"model mode slowed the {label} chain: "
+                                 f"{model:.4f} vs {off:.4f} ms")
+        del x
+        torch.cuda.empty_cache()
+
+    # The Adult release's device time under each mode: the model re-routes
+    # some chains (rows, per-axis) that the untuned plan fuses.
+    from repro_torch.engine import MarginalEngine
+    adult_plan, adult_margs = adult
+    rel = {"off": [], "model": []}
+    for mode in ("off", "model", "model", "off"):
+        os.environ["REPRO_KERNEL_AUTOTUNE"] = mode
+        fresh_tuning("release")
+        eng = MarginalEngine(adult_plan, device="cuda")
+        kern, copy = device_ms(lambda: eng.release(  # noqa: B023
+            adult_margs, torch.Generator("cuda").manual_seed(SEED)), 1)
+        rel[mode].append((kern, copy, eng.stats.fallback_chains))
+    os.environ.pop("REPRO_KERNEL_AUTOTUNE")
+    print(f"[autotune] Adult release device time (kernels ms, copies ms, "
+          f"per-axis chains) under off {rel['off']} and model {rel['model']} "
+          f"| {card}")
+    return counts, picks, mode_ms
+
+
+def phase_adult_bf16(card, adult, plan, margs):
+    """[adult-bf16]: the Adult <=3-way release under model mode with
+    REPRO_KERNEL_COMPUTE_DTYPES=bfloat16: measure chains at float32,
+    reconstruct chains that fit the fused kernel at bf16, every table within
+    rel 3e-2 of its group's max |fp32 table| (the float32 reconstruct of the
+    same measurements).  Returns the kernel counts of the release."""
+    from repro_torch.core.mechanism import signature_groups
+    from repro_torch.engine import MarginalEngine
+    from repro_torch.kernels.autotune import tune_chain
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    fresh_tuning("bf16")
+    os.environ["REPRO_KERNEL_COMPUTE_DTYPES"] = "bfloat16"
+    try:
+        reset_chain_stats()
+        t0 = time.perf_counter()
+        eng = MarginalEngine(plan, device="cuda")
+        t1 = time.perf_counter()
+        tables, meas = eng.release(margs, torch.Generator("cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = chain_stats()
+        rows = eng.chain_plans()
+    finally:
+        os.environ.pop("REPRO_KERNEL_COMPUTE_DTYPES")
+    fresh_tuning("fp32")
+    eng32 = MarginalEngine(plan, device="cuda")
+    t3 = time.perf_counter()
+    tables32 = eng32.reconstruct(meas)
+    t4 = time.perf_counter()
+    rows32 = eng32.chain_plans()
+    measure_rows = [r for r in rows if r["role"] == "measure"]
+    recon = [r for r in rows if r["role"] == "reconstruct"]
+    if any(r["compute_dtype"] != "float32" for r in measure_rows):
+        raise AssertionError("a measure chain was planned narrow")
+    if any(r["fused"] and r["compute_dtype"] != "bfloat16" for r in recon):
+        raise AssertionError("a fused reconstruct chain is not at bfloat16")
+    if not counts["narrow_launches"] > 0:
+        raise AssertionError(f"the narrow kernel never ran: {counts}")
+    fused16 = sum(r["fused"] for r in recon)
+    fused32 = sum(r["fused"] for r in rows32 if r["role"] == "reconstruct")
+    from repro_torch.kernels.kron_matvec.fused import plan_chain
+    fit = {dt: sum(plan_chain(f, d, b, compute_dtype=dt).fused_ok
+                   for f, d, b, _e, role in engine_chains(plan)
+                   if role == "reconstruct")
+           for dt in ("float32", "bfloat16")}
+    worst_rel = worst_sd = 0.0
+    sd = dict(zip(plan.workload.cliques, np.sqrt(plan.variances_array())))
+    for _dims, group in signature_groups(plan.domain,
+                                         plan.workload.cliques).items():
+        scale = max(max(float(np.abs(tables32[c]).max()) for c in group), 1.0)
+        for c in group:
+            diff = float(np.abs(tables[c] - tables32[c]).max())
+            worst_rel = max(worst_rel, diff / scale)
+            worst_sd = max(worst_sd, diff / sd[c])
+    # what the model picks with float32 offered beside bfloat16
+    both = {}
+    for f, d, b, e, role in engine_chains(plan):
+        if role == "reconstruct":
+            cfg = tune_chain(f, d, b, e, dtypes=("float32", "bfloat16"),
+                             device="cuda", mode="model", persist=False)
+            k = f"{cfg.compute_dtype}/{'fused' if cfg.fused else 'per-axis'}"
+            both[k] = both.get(k, 0) + 1
+    print(f"[adult-bf16] engine {t1 - t0:.3f} s, release {t2 - t1:.3f} s "
+          f"(float32 reconstruct of the same measurements {t4 - t3:.3f} s); "
+          f"{len(measure_rows)} measure chains all float32; reconstruct "
+          f"chains fused at bfloat16 {fused16} of {len(recon)} (float32: "
+          f"{fused32} fused), so {fused16 - fused32} moved from per-axis to "
+          f"fused; {fit['bfloat16']} fit a block at bf16, {fit['float32']} at "
+          f"float32; launches {counts}")
+    print(f"[adult-bf16] worst table vs float32: rel {worst_rel:.3e} of its "
+          f"group's max (bound {BF16_RELEASE_TOL}), {worst_sd:.4f} sigma; "
+          f"float32,bfloat16 offered, the model picks {both} | {card}")
+    if not worst_rel <= BF16_RELEASE_TOL:
+        raise AssertionError(f"a bf16 table is {worst_rel:.3e} from float32")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -496,6 +776,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The main path runs the tuner in its default mode (model) over float32,
+    # from an empty cache: no stale pick can hide it.
+    os.environ.pop("REPRO_KERNEL_AUTOTUNE", None)
+    os.environ.pop("REPRO_KERNEL_COMPUTE_DTYPES", None)
+    fresh_tuning("main")
     t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -524,15 +809,30 @@ def main() -> int:
         raise AssertionError(f"Synth release skipped the fused kernel: {synth_counts}")
 
     rplus_counts = phase_rplus_synth(), phase_rplus_adult(adult)
-    counts = (adult_counts, synth_counts) + rplus_counts
-    launches = {"fused_chain": sum(c["fused_launches"] for c in counts),
+    adult_margs = marginals_from_records(
+        adult, plan.cliques, synthetic_records(adult, ADULT_RECORDS, SEED))
+    tune_counts, _picks, _modes = phase_autotune(card, [
+        ("synth-10^%d" % SYNTH_D, engine_chains(splan)),
+        ("adult", engine_chains(plan))], (plan, adult_margs))
+    bf16_counts = phase_adult_bf16(card, adult, plan, adult_margs)
+    counts = (adult_counts, synth_counts) + rplus_counts + (tune_counts,
+                                                           bf16_counts)
+    launches = {"fused_chain": sum(c["fused_launches"] - c["narrow_launches"]
+                                   for c in counts),
+                "fused_chain_bf16": sum(c["bf16_launches"] for c in counts),
+                "fused_chain_fp16": sum(c["fp16_launches"] for c in counts),
                 "kron_axis": sum(c["axis_launches"] for c in counts)}
-    sources = {"fused_chain": ("src/repro_torch/kernels/kron_matvec/csrc/fused_chain.cu",
-                               "src/repro/kernels/kron_matvec/fused.py:262"),
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never ran on the main path: {launches}")
+    fused_src = ("src/repro_torch/kernels/kron_matvec/csrc/fused_chain.cu",
+                 "src/repro/kernels/kron_matvec/fused.py:262")
+    sources = {"fused_chain": fused_src, "fused_chain_bf16": fused_src,
+               "fused_chain_fp16": fused_src,
                "kron_axis": ("src/repro_torch/kernels/kron_matvec/csrc/kron_axis.cu",
                              "src/repro/kernels/kron_matvec/kron_matvec.py:55")}
     kernels = []
-    for name in ("fused_chain", "kron_axis"):
+    for name in ("fused_chain", "fused_chain_bf16", "fused_chain_fp16",
+                 "kron_axis"):
         mine = [r for r in rows if r["name"] == name]
         head = mine[0]
         kernels.append(dict(

@@ -10,9 +10,11 @@ from .mechanism import (Measurement, draw_noise, exact_marginals_from_x,
                         measure, measure_np, measure_np_batched,
                         noise_offsets, pcost_of_plan, residual_answer,
                         signature_groups)
-from .reconstruct import (embed_group, embed_subset_answers, marginal_covariance_dense,
+from .reconstruct import (cross_marginal_covariance_dense, embed_group,
+                          embed_subset_answers, marginal_covariance_dense,
                           marginal_variance, reconstruct_all,
                           reconstruct_all_batched, reconstruct_marginal,
-                          subset_slot_region, u_chain_factors)
+                          reconstruct_marginal_fast, subset_slot_region,
+                          u_chain_factors)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -12,8 +12,9 @@ each workload marginal are embedded on the host (numpy, as in the JAX
 package) into disjoint slots of one (n_i)_{i∈A} tensor, a whole signature
 group at a time (:func:`embed_group`), copied to the device once, run
 through ONE merged chain ⊗ T_i, and copied back once.
-``reconstruct_marginal`` and ``marginal_covariance_dense`` are the float64
-host oracles.
+:func:`reconstruct_marginal_fast` runs one clique's merged chain.
+``reconstruct_marginal``, ``marginal_covariance_dense`` and
+``cross_marginal_covariance_dense`` are the float64 host oracles.
 """
 from __future__ import annotations
 
@@ -131,6 +132,31 @@ def reconstruct_marginal(plan: Plan, measurements: Mapping[Clique, Measurement],
     return q
 
 
+def reconstruct_marginal_fast(plan: Plan,
+                              measurements: Mapping[Clique, Measurement],
+                              clique: Clique, use_kernel: bool = False,
+                              device=None) -> np.ndarray:
+    """Algorithm 2 as ONE Kronecker chain instead of 2^|A| subset matvecs.
+
+    Embeds all subset answers into disjoint slots of one (n_i)_{i∈A} tensor
+    (see :func:`u_chain_factors`) and applies the merged chain ⊗ T_i once:
+    float64 on the host, or the fused kernel on ``device`` when
+    ``use_kernel`` (float32 out, a tuned narrow operand type allowed).
+    """
+    dev = resolve_device(device) if use_kernel else None
+    if not clique:
+        return np.asarray(measurements[()].omega, dtype=float).reshape(-1)
+    sizes = plan.domain.clique_sizes(clique)
+    t = embed_subset_answers(plan, measurements, clique).reshape(-1)
+    factors = u_chain_factors(plan.domain, clique)
+    if use_kernel:
+        from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
+        x = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        return fused_chain_matvec(factors, x, sizes,
+                                  allow_narrow=True).cpu().numpy()
+    return kron_matvec_np(factors, t, sizes)
+
+
 def reconstruct_all(plan: Plan, measurements: Mapping[Clique, Measurement]
                     ) -> Dict[Clique, np.ndarray]:
     return {c: reconstruct_marginal(plan, measurements, c)
@@ -161,7 +187,9 @@ def reconstruct_all_batched(plan: Plan, measurements: Mapping[Clique, Measuremen
         factors = u_chain_factors(plan.domain, group[0])
         if use_kernel:
             from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
-            y = fused_chain_matvec(factors, xt, sizes)
+            # Reconstruction carries no noise lanes: a tuned narrow operand
+            # type (float32 accumulation) may serve it.
+            y = fused_chain_matvec(factors, xt, sizes, allow_narrow=True)
         else:
             y = kron_matvec_batched(factors, xt, sizes)
         y = y.cpu().numpy()
@@ -200,4 +228,30 @@ def marginal_covariance_dense(plan: Plan, clique: Clique) -> np.ndarray:
             else:
                 facs.append(np.full((sz, sz), 1.0 / sz ** 2))
         cov += plan.sigmas[sub] * (kron_expand(facs) if facs else np.ones((1, 1)))
+    return cov
+
+
+def cross_marginal_covariance_dense(plan: Plan, a: Clique, b: Clique
+                                    ) -> np.ndarray:
+    """Full cross-covariance matrix of the reconstructed marginals on A and B.
+
+    Only the measurements on shared subsets A' ⊆ A∩B correlate the two:
+
+        Cov(Q̂_A, Q̂_B) = Σ_{A'⊆A∩B} σ²_{A'} · U_{A←A'} H_{A'} H_{A'}ᵀ U_{B←A'}ᵀ
+
+    with H_{A'} = ⊗_{i∈A'} Sub_{n_i}.  Materializes n_cells(A) × n_cells(B),
+    float64 on the host: small cliques only.
+    """
+    from .kron import kron_expand
+    from .residual import sub_matrix
+
+    dom = plan.domain
+    inter = tuple(sorted(set(a) & set(b)))
+    cov = np.zeros((dom.n_cells(a), dom.n_cells(b)))
+    for sub in subsets(inter):
+        ua = kron_expand(_u_factors(dom, a, sub)[0]) if a else np.ones((1, 1))
+        ub = kron_expand(_u_factors(dom, b, sub)[0]) if b else np.ones((1, 1))
+        h = kron_expand([sub_matrix(dom.attributes[i].size) for i in sub]) \
+            if sub else np.ones((1, 1))
+        cov += plan.sigmas[sub] * ua @ h @ h.T @ ub.T
     return cov

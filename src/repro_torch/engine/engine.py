@@ -2,9 +2,10 @@
 
 At construction the engine walks the plan's signature groups, plans every
 kernel chain it will ever need — the measurement chains ⊗ Sub_{n_i} over the
-closure and the reconstruction chains ⊗ T_i over the workload — and, on
-CUDA, launches each once on zeros so the kernels are built and loaded before
-the first request.
+closure and the reconstruction chains ⊗ T_i over the workload — with the
+autotuner's launch config (reconstruction chains may take narrow operands,
+measurement chains never do), and, on CUDA, launches each once on zeros so
+the kernels are built and loaded before the first request.
 
 Usage::
 
@@ -25,8 +26,11 @@ from repro_torch.core.mechanism import (Measurement, measure, noise_dtype,
 from repro_torch.core.reconstruct import reconstruct_all_batched, u_chain_factors
 from repro_torch.core.residual import sub_matrix
 from repro_torch.core.select import Plan
+from repro_torch.kernels.autotune.tuner import (TunedConfig, autotune_mode,
+                                               resolve_config, tune_chain)
 from repro_torch.kernels.kron_matvec._layout import resolve_device
-from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec, plan_chain
+from repro_torch.kernels.kron_matvec.fused import (config_launch, factor_shapes,
+                                                   fused_chain_matvec)
 
 
 class EngineStats:
@@ -34,12 +38,14 @@ class EngineStats:
 
     * measure/reconstruct_calls, measure/reconstruct_signatures
     * fused_chains / fallback_chains — chain planning outcome
+    * tuned_chains — chains registered under a tuned launch config
     * compile_warmups — warmup launches at construction
     """
 
     _FIELDS = ("measure_calls", "reconstruct_calls",
                "measure_signatures", "reconstruct_signatures",
-               "fused_chains", "fallback_chains", "compile_warmups")
+               "fused_chains", "fallback_chains", "tuned_chains",
+               "compile_warmups")
 
     __slots__ = _FIELDS
 
@@ -65,21 +71,52 @@ class ChainRegistry:
 
     Subclasses provide ``self.stats`` (EngineStats) and ``self.device``;
     ``self._chain_plans`` maps each chain to a ``(ChainPlan, factors,
-    batch)`` tuple, the plan carrying the chain's epilogue.  The JAX
-    package's autotuner and roofline hooks are not ported yet.
+    batch)`` tuple, the plan carrying the chain's epilogue and operand type.
+
+    Registration is where the autotuner hooks in: unless
+    ``REPRO_KERNEL_AUTOTUNE`` is ``off``, every chain is tuned up front (in
+    ``measure`` mode by timing kernels, outside any request, and persisted;
+    in ``model`` mode resolved as a serving call resolves it), and the plan
+    is the launch the serving path will make.  ``role`` is the chain's
+    duty: ``"measure"`` chains carry Gaussian noise and are planned at
+    float32; ``"reconstruct"`` chains may take a tuned narrow operand type
+    (float32 accumulation).  The JAX package's roofline gauges
+    (``_publish_roofline``) wait for the port of ``obs/``.
     """
 
     _chain_plans: Dict[tuple, tuple]
+    _chain_tune: Dict[tuple, Optional[TunedConfig]]
+    _chain_roles: Dict[tuple, str]
 
     def _register_chain(self, factors: List, dims: Tuple[int, ...],
                         batch: int,
-                        epilogue: Optional[Sequence[Optional[str]]] = None
-                        ) -> None:
-        cp = plan_chain(factors, dims, batch=batch, epilogue=epilogue)
+                        epilogue: Optional[Sequence[Optional[str]]] = None,
+                        role: str = "measure") -> None:
+        if role not in ("measure", "reconstruct"):
+            raise ValueError(f"unknown chain role {role!r}")
+        mode = autotune_mode()
+        cfg = None
+        if mode == "measure":
+            cfg = tune_chain(factors, dims, batch=batch, epilogue=epilogue,
+                             device=self.device, mode="measure")
+        elif mode == "model":
+            cfg = resolve_config(factors, dims, batch, epilogue, self.device)
+        cp, fused = config_launch(factor_shapes(factors, dims), dims, batch,
+                                  epilogue, cfg, role == "reconstruct")
         key = (tuple(dims), cp.signature)
         if key not in self._chain_plans:
+            if not hasattr(self, "_chain_tune"):
+                self._chain_tune, self._chain_roles = {}, {}
             self._chain_plans[key] = (cp, factors, batch)
-            self.stats.bump("fused_chains" if cp.fused_ok else "fallback_chains")
+            self._chain_tune[key] = cfg
+            self._chain_roles[key] = role
+            self.stats.bump("fused_chains" if fused else "fallback_chains")
+            if cfg is not None:
+                self.stats.bump("tuned_chains")
+
+    def _chain_allow_narrow(self, key: tuple) -> bool:
+        """Reconstruct-role chains may serve at a tuned narrow dtype."""
+        return getattr(self, "_chain_roles", {}).get(key) == "reconstruct"
 
     def _warmup(self) -> None:
         """Run every planned chain, epilogue included, once on zeros: builds
@@ -88,16 +125,27 @@ class ChainRegistry:
         for key, (cp, factors, batch) in self._chain_plans.items():
             x = torch.zeros((batch, cp.n_in), dtype=torch.float32,
                             device=self.device)
-            fused_chain_matvec(factors, x, key[0], epilogue=cp.epilogue)
+            fused_chain_matvec(factors, x, key[0], epilogue=cp.epilogue,
+                               allow_narrow=self._chain_allow_narrow(key))
             self.stats.bump("compile_warmups")
         torch.cuda.synchronize(self.device)
 
     def chain_plans(self) -> List[dict]:
         """Layout report: one row per planned chain (for ops/debugging)."""
-        return [dict(dims=key[0], batch=batch, rows=cp.rows, buf=cp.buf,
-                     smem_bytes=cp.smem_bytes, fused=cp.fused_ok,
-                     epilogue=cp.epilogue)
-                for key, (cp, _f, batch) in self._chain_plans.items()]
+        tune = getattr(self, "_chain_tune", {})
+        roles = getattr(self, "_chain_roles", {})
+        rows = []
+        for key, (cp, _f, batch) in self._chain_plans.items():
+            cfg = tune.get(key)
+            rows.append(dict(
+                dims=key[0], batch=batch, rows=cp.rows, buf=cp.buf,
+                smem_bytes=cp.smem_bytes,
+                fused=(cfg.fused and cp.fused_ok) if cfg else cp.fused_ok,
+                epilogue=cp.epilogue, compute_dtype=cp.compute_dtype,
+                role=roles.get(key), tuned=cfg is not None,
+                tune_source=cfg.source if cfg else "default",
+                intensity=cfg.intensity if cfg else None))
+        return rows
 
 
 class ReleaseServing:
@@ -151,11 +199,11 @@ class MarginalEngine(ReleaseServing, ChainRegistry):
         for dims, cliques in self._measure_groups.items():
             if dims:
                 self._register_chain([sub_matrix(n) for n in dims], dims,
-                                     2 * len(cliques))
+                                     2 * len(cliques), role="measure")
         for dims, cliques in self._reconstruct_groups.items():
             if dims:
                 self._register_chain(u_chain_factors(plan.domain, cliques[0]),
-                                     dims, len(cliques))
+                                     dims, len(cliques), role="reconstruct")
         if precompile and self.use_kernel and self.device.type == "cuda":
             self._warmup()
 

@@ -110,14 +110,16 @@ class PlusEngine(ReleaseServing, ChainRegistry):
         for tok, cliques in self._measure_groups.items():
             dims, zdims, stage_a, stage_b = self._measure_specs[tok]["split"]
             if any(f is not None for f in stage_a):
-                self._register_chain(stage_a, dims, len(cliques))
+                self._register_chain(stage_a, dims, len(cliques),
+                                     role="measure")
             if any(f is not None for f in stage_b):
-                self._register_chain(stage_b, zdims, 2 * len(cliques))
+                self._register_chain(stage_b, zdims, 2 * len(cliques),
+                                     role="measure")
         for tok, cliques in self._reconstruct_groups.items():
             if tok:
                 s = self._reconstruct_specs[tok]
                 self._register_chain(s["factors"], s["in_dims"], len(cliques),
-                                     s["epilogue"])
+                                     s["epilogue"], role="reconstruct")
         if precompile and self.use_kernel and self.device.type == "cuda":
             self._warmup()
 
@@ -178,9 +180,13 @@ class PlusEngine(ReleaseServing, ChainRegistry):
                 for c, o in self._noise_offs.items()}
 
     # ------------------------------------------------------------------ serve
-    def _chain(self, factors, x, dims, epilogue=None):
+    def _chain(self, factors, x, dims, epilogue=None, allow_narrow=False):
+        """One chain on the device: the kernels when ``use_kernel`` (narrow
+        operands only where ``allow_narrow``, i.e. reconstruction), else
+        the plain batched torch path in float32."""
         if self.use_kernel:
-            return fused_chain_matvec(factors, x, dims, epilogue=epilogue)
+            return fused_chain_matvec(factors, x, dims, epilogue=epilogue,
+                                      allow_narrow=allow_narrow)
         y = kron_matvec_batched(factors, x, dims)
         CHAIN_STATS.inc("epilogue_axes", sum(op is not None
                                              for op in epilogue or ()))
@@ -238,8 +244,10 @@ class PlusEngine(ReleaseServing, ChainRegistry):
                     self._build_reconstruct_spec(group[0])
             x = torch.from_numpy(embed_group(self.plan, measurements, group,
                                              slot_dims=s["in_dims"]))
+            # Reconstruction carries no noise lanes: a tuned narrow operand
+            # type (float32 accumulation) may serve it.
             y = self._chain(s["factors"], x.to(self.device), s["in_dims"],
-                            s["epilogue"])
+                            s["epilogue"], allow_narrow=True)
             y = y.reshape((len(group),) + s["chain_out"])
             for axis, post in enumerate(s["posts"]):
                 if post is not None:

@@ -51,12 +51,43 @@
 // scan is O(rows * w_out) adds per axis against the chain's O(rows * w * n)
 // FMAs, so it leaves the bound of the launch as it was.
 
+// Narrow operands.  The kernel is a template on the operand type T: float,
+// __nv_bfloat16 or __half (one instantiation each, chosen by the launcher's
+// dtype code).  The factors (packed at T by fused.py) and both ping-pong
+// buffers are held at T, so at two bytes an element twice the rows fit a
+// block; the float32 stack is rounded to T as it is staged into shared
+// memory, each FMA widens both operands to float and accumulates with fmaf
+// from 0 in the order k = 0 .. n-1, each axis's result is rounded to T when
+// it is stored, the epilogue keeps its running sum in a float register and
+// stores each prefix rounded to T, and the last buffer is widened to float32
+// when it is written to Y.  These are the rounding points of the TPU
+// kernel's _contract (fused.py: fp32 dot, narrowed after every contraction,
+// the tril epilogue included).  The TPU package casts the stack to the
+// narrow type in a separate pass before the kernel (one more read and write
+// of it); here the cast happens while staging, so the narrow kernel moves
+// the same device-memory bytes as the float one (rows in and out at four
+// bytes): on this card a narrow type buys shared-memory room, hence more
+// rows per block and chains that fit the fused kernel at all, not bytes.
+// Its bound counts the float32 read and write.  With bf16 or fp16 operands
+// every product is exact in float32, so fmaf and a separate multiply and
+// add give the same sum: the kernel agrees with fused.py's narrow plain
+// version bit for bit (the epilogue aside, whose plain version is
+// torch.cumsum).  The float instantiation is the float kernel as it was.
+//
+// The shared-memory attribute (up to 227 KB of dynamic shared memory) is set
+// once per instantiation and device, not on every launch.
+
+#include <atomic>
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxAxes = 16;   // fused.py's _MAX_AXES
+constexpr int kMaxAxes = 16;          // fused.py's _MAX_AXES
+constexpr int kSmemMax = 232448;      // 227 KB: what one Hopper block may use
 
 struct Chain {
   int k;               // number of axes
@@ -66,14 +97,37 @@ struct Chain {
   int epi[kMaxAxes];   // 1: inclusive prefix sum along the axis after the chain
 };
 
+// Widening to float and rounding (to nearest, ties to even) to the operand.
+template <typename T> struct Operand;
+template <> struct Operand<float> {
+  static __device__ __forceinline__ float wide(float v) { return v; }
+  static __device__ __forceinline__ float narrow(float v) { return v; }
+};
+template <> struct Operand<__nv_bfloat16> {
+  static __device__ __forceinline__ float wide(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 narrow(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+template <> struct Operand<__half> {
+  static __device__ __forceinline__ float wide(__half v) { return __half2float(v); }
+  static __device__ __forceinline__ __half narrow(float v) {
+    return __float2half_rn(v);
+  }
+};
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
-                   const float* __restrict__ f, long long B, Chain ch, int nf,
+                   const T* __restrict__ f, long long B, Chain ch, int nf,
                    int rows, int buf, int w_in, int w_out) {
-  extern __shared__ float smem[];
-  float* fs = smem;
-  float* src = smem + nf;
-  float* dst = src + rows * buf;
+  using Op = Operand<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* fs = reinterpret_cast<T*>(smem_raw);
+  T* src = fs + nf;
+  T* dst = src + rows * buf;
   const long long r0 = static_cast<long long>(blockIdx.x) * rows;
   const int nr = static_cast<int>(B - r0 < rows ? B - r0 : rows);
 
@@ -81,7 +135,7 @@ fused_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
   const float* xin = x + r0 * w_in;
   for (int i = threadIdx.x; i < nr * w_in; i += blockDim.x) {
     const int r = i / w_in;
-    src[r * buf + (i - r * w_in)] = xin[i];
+    src[r * buf + (i - r * w_in)] = Op::narrow(xin[i]);
   }
   __syncthreads();
 
@@ -93,7 +147,7 @@ fused_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
     const int n = ch.n[a];
     const int mp = ch.m[a] * post;
     const int out = pre * mp;
-    const float* S = fs + ch.off[a];
+    const T* S = fs + ch.off[a];
     for (int i = threadIdx.x; i < nr * out; i += blockDim.x) {
       const int r = i / out;
       const int e = i - r * out;
@@ -101,14 +155,15 @@ fused_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
       const int rem = e - p * mp;
       const int q = rem / post;
       const int t = rem - q * post;
-      const float* xr = src + r * buf + p * n * post + t;
-      const float* srow = S + q * n;
+      const T* xr = src + r * buf + p * n * post + t;
+      const T* srow = S + q * n;
       float acc = 0.f;
-      for (int k = 0; k < n; ++k) acc = fmaf(srow[k], xr[k * post], acc);
-      dst[r * buf + e] = acc;
+      for (int k = 0; k < n; ++k)
+        acc = fmaf(Op::wide(srow[k]), Op::wide(xr[k * post]), acc);
+      dst[r * buf + e] = Op::narrow(acc);
     }
     __syncthreads();
-    float* tmp = src;
+    T* tmp = src;
     src = dst;
     dst = tmp;
   }
@@ -127,11 +182,11 @@ fused_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
       const int e = i - r * pp;
       const int p = e / post;
       const int t = e - p * post;
-      float* line = src + r * buf + p * n * post + t;
+      T* line = src + r * buf + p * n * post + t;
       float acc = 0.f;
       for (int k = 0; k < n; ++k) {
-        acc += line[k * post];
-        line[k * post] = acc;
+        acc += Op::wide(line[k * post]);
+        line[k * post] = Op::narrow(acc);
       }
     }
     __syncthreads();
@@ -140,19 +195,54 @@ fused_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
   float* yout = y + r0 * w_out;
   for (int i = threadIdx.x; i < nr * w_out; i += blockDim.x) {
     const int r = i / w_out;
-    yout[i] = src[r * buf + (i - r * w_out)];
+    yout[i] = Op::wide(src[r * buf + (i - r * w_out)]);
   }
+}
+
+// Allows the instantiation up to kSmemMax bytes of dynamic shared memory on
+// the current device, once per device.
+template <typename T>
+cudaError_t allow_max_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(fused_chain_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemMax);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
+
+template <typename T>
+int launch(const float* x, float* y, const void* f, long long B,
+           const Chain& ch, int nf, int rows, int buf, int w_in, int w_out,
+           cudaStream_t stream) {
+  const long long smem =
+      static_cast<long long>(sizeof(T)) * (nf + 2LL * rows * buf);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_max_smem<T>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (B + rows - 1) / rows;
+  fused_chain_kernel<T><<<static_cast<unsigned int>(blocks), kThreads,
+                          static_cast<size_t>(smem), stream>>>(
+      x, y, static_cast<const T*>(f), B, ch, nf, rows, buf, w_in, w_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// n, m, off, epi: host arrays of k ints (fused.py packs them).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-int fused_chain_launch(const float* x, float* y, const float* f, long long B,
+// n, m, off, epi: host arrays of k ints (fused.py packs them).  f holds the
+// packed factors at the operand type of `dtype`: 0 float, 1 bfloat16,
+// 2 float16.  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
+int fused_chain_launch(const float* x, float* y, const void* f, long long B,
                        int k, const int* n, const int* m, const int* off,
-                       const int* epi, int nf, int rows, int buf,
+                       const int* epi, int nf, int rows, int buf, int dtype,
                        void* stream) {
   if (k < 1 || k > kMaxAxes || rows < 1) return cudaErrorInvalidValue;
   if (B <= 0) return 0;
@@ -167,17 +257,17 @@ int fused_chain_launch(const float* x, float* y, const float* f, long long B,
     w_in *= n[a];
     w_out *= m[a];
   }
-  const long long smem = 4LL * (nf + 2LL * rows * buf);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (B + rows - 1) / rows;
-  fused_chain_kernel<<<static_cast<unsigned int>(blocks), kThreads,
-                       static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, y, f, B, ch, nf, rows, buf, w_in, w_out);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch<float>(x, y, f, B, ch, nf, rows, buf, w_in, w_out, s);
+    case 1:
+      return launch<__nv_bfloat16>(x, y, f, B, ch, nf, rows, buf, w_in, w_out, s);
+    case 2:
+      return launch<__half>(x, y, f, B, ch, nf, rows, buf, w_in, w_out, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

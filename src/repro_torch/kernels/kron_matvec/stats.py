@@ -4,7 +4,9 @@ Plain integers, bumped by the host-side wrappers: ``fused_launches`` and
 ``axis_launches`` each time a CUDA kernel is launched (and only then — the
 plain PyTorch versions that serve CPU tensors count nothing), with
 ``epilogue_launches`` counting the fused launches that ran a ``'cumsum'``
-epilogue in the kernel; ``fused_chains`` / ``fallback_chains`` each time
+epilogue in the kernel and ``narrow_launches`` those with bfloat16 or
+float16 operands (split by type in ``bf16_launches`` / ``fp16_launches``);
+``fused_chains`` / ``fallback_chains`` each time
 ``fused_chain_matvec`` routes a chain to the fused kernel or to the per-axis
 fallback, and ``epilogue_axes`` the epilogue axes it applied, on any device.  A run
 resets them, drives its path and reads them, to show which kernels served it.
@@ -20,6 +22,9 @@ _FIELDS = (
     "fallback_chains",  # chains routed to the per-axis kernel
     "epilogue_axes",    # 'cumsum' epilogue axes applied, on any route
     "epilogue_launches",  # fused_chain.cu launches that ran an epilogue
+    "narrow_launches",  # fused_chain.cu launches with bf16 or fp16 operands
+    "bf16_launches",    # ... of them with bfloat16 operands
+    "fp16_launches",    # ... of them with float16 operands
 )
 
 

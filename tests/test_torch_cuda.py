@@ -113,9 +113,9 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         kron_axis_matvec(s.double(), torch.ones((1, 3, 1), device=cuda).double())
     with pytest.raises(ValueError):
         kron_axis_matvec(s, torch.ones((1, 3, 1)))
-    with pytest.raises(NotImplementedError, match="slice c"):
+    with pytest.raises(ValueError, match="compute dtype"):
         fused_chain_matvec([sub_matrix(3)], torch.ones((1, 3), device=cuda),
-                           [3], compute_dtype="bfloat16")
+                           [3], compute_dtype="int8")
     with pytest.raises(ValueError):
         fused_chain_matvec([sub_matrix(3)], torch.ones((1, 3), device=cuda),
                            [3], epilogue=["cummax"])
@@ -248,3 +248,119 @@ def test_plus_engine_on_card_matches_oracles(cuda):
         want = reconstruct_plus(plan, oracle, c)
         scale = max(np.abs(want).max(), 1.0)
         assert np.abs(tables[c] - want).max() / scale < 1e-4, c
+
+
+# ------------------------------------------------------------ narrow operands
+NARROW_TOL = {"bfloat16": 1e-2, "float16": 2e-3}   # of max|plain|
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", "float16"])
+@pytest.mark.parametrize("epi", [None, ("cumsum",) * 3])
+@pytest.mark.parametrize("rows", [None, 1, 3, 8, 16])
+def test_narrow_kernel_matches_narrow_plain(cuda, cd, epi, rows):
+    """The templated kernel at bf16/fp16 against the narrow plain version on
+    the card, across a rows lattice.  Operand products are exact in float32,
+    so without an epilogue the two round at the same points."""
+    dom = Domain.create([10, 10, 10])
+    facs = [f.astype(np.float32) for f in u_chain_factors(dom, (0, 1, 2))]
+    x = torch.as_tensor(np.random.default_rng(10).standard_normal((1001, 1000)),
+                        dtype=torch.float32, device=cuda)
+    reset_chain_stats()
+    got = fused_chain_matvec(facs, x, (10, 10, 10), epilogue=epi, rows=rows,
+                             compute_dtype=cd)
+    st = chain_stats()
+    assert st["fused_launches"] == st["narrow_launches"] == 1
+    assert st["bf16_launches" if cd == "bfloat16" else "fp16_launches"] == 1
+    want = fused_chain_matvec_plain(facs, x, (10, 10, 10), epi, cd)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel(got, want) < NARROW_TOL[cd]
+    assert _rel(got, fused_chain_matvec_plain(facs, x, (10, 10, 10), epi)) \
+        < 3 * NARROW_TOL[cd]
+
+
+def test_narrow_kernel_fits_chains_fp32_cannot(cuda):
+    rng = np.random.default_rng(11)
+    dims = (32, 32, 32)
+    facs = [rng.standard_normal((32, 32)).astype(np.float32) for _ in dims]
+    x = torch.as_tensor(rng.standard_normal((5, 32768)), dtype=torch.float32,
+                        device=cuda)
+    reset_chain_stats()
+    got = fused_chain_matvec(facs, x, dims, compute_dtype="bfloat16")
+    wide = fused_chain_matvec(facs, x, dims, compute_dtype="float32")
+    st = chain_stats()
+    assert st["narrow_launches"] == 1 and st["axis_launches"] == 3
+    assert _rel(got, fused_chain_matvec_plain(facs, x, dims, None,
+                                              "bfloat16")) < 1e-2
+    assert _rel(got, wide) < 3e-2
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 7, 8, 16])
+def test_tuned_rows_bit_identical_to_untuned_on_card(cuda, rows):
+    rng = np.random.default_rng(12)
+    dims = (10, 7, 12)
+    facs = [rng.standard_normal((n, n)).astype(np.float32) for n in dims]
+    x = torch.as_tensor(rng.standard_normal((53, math.prod(dims))),
+                        dtype=torch.float32, device=cuda)
+    untuned = fused_chain_matvec(facs, x, dims, smem_budget=232448)
+    assert torch.equal(untuned, fused_chain_matvec(facs, x, dims, rows=rows))
+
+
+def test_model_and_measure_modes_on_card(cuda, tmp_path, monkeypatch):
+    """model mode serves the untuned bits; measure mode times kernels on the
+    card, tags its pick and writes the cache."""
+    from repro_torch.kernels.autotune import (TuningCache, reset_registry,
+                                              tune_chain)
+    from repro_torch.roofline import detect_device
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path))
+    reset_registry()
+    rng = np.random.default_rng(13)
+    dims = (10, 10, 10)
+    facs = [sub_matrix(10).astype(np.float32)] * 3
+    x = torch.as_tensor(rng.standard_normal((4000, 1000)), dtype=torch.float32,
+                        device=cuda)
+    monkeypatch.setenv("REPRO_KERNEL_AUTOTUNE", "off")
+    off = fused_chain_matvec(facs, x, dims)
+    monkeypatch.setenv("REPRO_KERNEL_AUTOTUNE", "model")
+    assert torch.equal(off, fused_chain_matvec(facs, x, dims))
+    cfg = tune_chain(facs, dims, batch=4000, device=cuda, mode="measure",
+                     dtypes=("float32", "bfloat16"))
+    assert cfg.source == "measure" and cfg.predicted_s > 0
+    assert len(TuningCache(detect_device(cuda).kind).load()) == 1
+    reset_registry()
+
+
+def test_narrow_clamp_on_card(cuda, tmp_path, monkeypatch):
+    """A cached bf16 config whose rows overflow a block at float32 reaches a
+    call without allow_narrow: re-planned at float32, no launch failure,
+    float32 bits."""
+    from repro_torch.kernels.autotune import (TunedConfig, TuningCache,
+                                              chain_key, reset_registry)
+    from repro_torch.kernels.kron_matvec.fused import factor_shapes, plan_chain
+    from repro_torch.roofline import detect_device
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path))
+    monkeypatch.setenv("REPRO_KERNEL_AUTOTUNE", "model")
+    monkeypatch.setenv("REPRO_KERNEL_COMPUTE_DTYPES", "bfloat16")
+    reset_registry()
+    rng = np.random.default_rng(14)
+    dims = (30, 30, 30)
+    facs = [rng.standard_normal((30, 30)).astype(np.float32) for _ in dims]
+    x = torch.as_tensor(rng.standard_normal((9, 27000)), dtype=torch.float32,
+                        device=cuda)
+    narrow = plan_chain(facs, dims, batch=9, rows=2, compute_dtype="bfloat16")
+    assert narrow.fused_ok and not plan_chain(facs, dims, rows=2).fused_ok
+    kind = detect_device(cuda).kind
+    TuningCache(kind).put(
+        chain_key(kind, dims, factor_shapes(facs, dims), None, 9,
+                  ("bfloat16",)),
+        TunedConfig(rows=2, smem_budget=narrow.smem_bytes,
+                    compute_dtype="bfloat16").as_dict())
+    reset_chain_stats()
+    clamped = fused_chain_matvec(facs, x, dims)
+    torch.cuda.synchronize()
+    assert chain_stats()["narrow_launches"] == 0
+    assert torch.equal(clamped, fused_chain_matvec(facs, x, dims,
+                                                   compute_dtype="float32"))
+    served = fused_chain_matvec(facs, x, dims, allow_narrow=True)
+    assert chain_stats()["narrow_launches"] == 1
+    assert _rel(served, clamped) < 3e-2
+    reset_registry()

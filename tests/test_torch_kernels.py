@@ -150,11 +150,15 @@ def test_wide_chain_takes_the_per_axis_path(rng):
 
 
 def test_unported_options_raise():
-    """Narrow compute dtypes are still unported; the 'cumsum' epilogue is
-    held (below) and only an unknown op or a wrong length raises."""
+    """Every option of the reference is ported now: narrow compute dtypes
+    (tests/test_torch_autotune.py) and the 'cumsum' epilogue (below); only
+    an operand type the reference does not have, an unknown op or a wrong
+    length raises."""
     x = torch.ones((1, 3))
-    with pytest.raises(NotImplementedError, match="slice c"):
-        fused_chain_matvec([sub_matrix(3)], x, [3], compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="compute dtype"):
+        fused_chain_matvec([sub_matrix(3)], x, [3], compute_dtype="int8")
+    assert fused_chain_matvec([sub_matrix(3)], x, [3],
+                              compute_dtype="bfloat16").dtype == torch.float32
     with pytest.raises(ValueError):
         fused_chain_matvec([sub_matrix(3)], x, [3], epilogue=["cummax"])
     with pytest.raises(ValueError):
