@@ -18,10 +18,12 @@ Phases, in order; any failure exits non-zero:
    release against the float64 host oracles.
 3. Adult, all <=3-way marginals: select_sum_of_variances -> MarginalEngine
    (device="cuda") -> release, marginals from seeded synthetic records.
-   Every table within 6 sigma of the exact marginal; both kernels launched.
+   Every table within 6 sigma of the exact marginal; both kernels launched;
+   then one more release under the profiler, its device time by kernel.
 4. Synth-10^d (d = 100), all <=3-way: the same release over marginals of a
    seeded mixture; every table within 7 sigma (about 1.6e8 cells: at 6 sigma
-   some 0.3 cells would exceed the bound by chance, at 7 sigma 4e-4).
+   some 0.3 cells would exceed the bound by chance, at 7 sigma 4e-4), and
+   its device time by kernel as for Adult.
 5. [rplus-synth] ResidualPlanner+ on Synth-10^20, every attribute a range
    query, all <=3-way, hierarchical strategy: select_plus (SoV) ->
    PlusEngine -> release; every range answer within 7 sigma (per-cell sigma
@@ -32,10 +34,11 @@ Phases, in order; any failure exits non-zero:
    answer within 6 sigma; both kernels and the in-kernel epilogue launched.
 7. [autotune] the Synth-10^100 and Adult chain groups pretuned in measure
    mode (float32, bfloat16 and float16 offered): each pick against the cost
-   model's first pick; then Synth's two 3-way chains' device times under
-   REPRO_KERNEL_AUTOTUNE=off and =model, three alternated runs each (the
-   median under model within 1.1x of the median under off), and the Adult
-   release's device time under each mode.
+   model's first pick; then Synth's two 3-way chains' times per call (CUDA
+   events over back-to-back calls) under REPRO_KERNEL_AUTOTUNE=off and
+   =model, three alternated runs each (the median under model within 1.1x
+   of the median under off), and the Adult release's device time under
+   each mode.
 8. [adult-bf16] the Adult <=3-way release with
    REPRO_KERNEL_COMPUTE_DTYPES=bfloat16: measure chains at float32,
    reconstruct chains on the fused kernel at bf16 (narrow launches > 0),
@@ -104,20 +107,56 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+PORT_KERNELS = ("fused_chain_kernel", "kron_axis_kernel")
+
+
+def profiled(run, tries: int = 5):
+    """(key_averages, complete) of a torch.profiler session over ``run()``.
+
+    The profiler can drop kernel events (seen: 7 of 10 launches recorded in
+    a session after busy ones), which makes a sum of device time too small.
+    So the session is taken again, up to ``tries`` times, until it holds as
+    many events of the port's kernels as the wrappers counted launches in
+    it; ``complete`` says whether it got there."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.kron_matvec.stats import chain_stats
+
+    def launched():
+        st = chain_stats()
+        return st["fused_launches"] + st["axis_launches"]
+
+    for _ in range(tries):
+        before = launched()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        evs = prof.key_averages()
+        seen = sum(ev.count for ev in evs
+                   if any(k in ev.key for k in PORT_KERNELS))
+        if seen == launched() - before:
+            return evs, True
+    print(f"[profiler] {seen} of {launched() - before} kernel launches "
+          f"recorded after {tries} tries; device times below undercount")
+    return evs, False
+
+
 def device_ms(fn, reps: int):
     """(kernel ms, copy ms) of one call of ``fn`` on the card, from
-    torch.profiler's device events over ``reps`` calls: the time the card
-    spent in kernels and in memory copies, whatever the host spent around
-    them.  (None, None) if the profiler recorded no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler's device events over ``reps`` calls (a session that
+    recorded every launch of the port's kernels, see ``profiled``): the
+    time the card spent in kernels and in memory copies, whatever the host
+    spent around them.  (None, None) if the profiler recorded no device
+    time."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+
+    evs, _ = profiled(run)
     kern = copy = 0.0
-    for ev in prof.key_averages():
+    for ev in evs:
         us = ev.self_device_time_total
         if ev.key.startswith(("Memcpy", "Memset")):
             copy += us
@@ -126,6 +165,33 @@ def device_ms(fn, reps: int):
     if kern + copy <= 0:
         return None, None
     return kern / 1e3 / reps, copy / 1e3 / reps
+
+
+def kernel_label(key: str) -> str:
+    """The kernels line's name of a profiler kernel key: fused_chain (float
+    operands), fused_chain_bf16, fused_chain_fp16, kron_axis; 'other' for
+    every other kernel on the card (the noise draw, casts, cumsum)."""
+    if "kron_axis_kernel" in key:
+        return "kron_axis"
+    if "fused_chain_kernel" in key:
+        return ("fused_chain_bf16" if "bfloat16" in key else
+                "fused_chain_fp16" if "__half" in key else "fused_chain")
+    return "other"
+
+
+def kernel_ms_by_name(fn):
+    """Device ms of one call of ``fn`` in each kernel of the port (by
+    kernel_label), from torch.profiler's device events (``profiled``);
+    copies apart."""
+    torch.cuda.synchronize()
+    evs, _ = profiled(fn)
+    out = {}
+    for ev in evs:
+        if ev.key.startswith(("Memcpy", "Memset")):
+            continue
+        name = kernel_label(ev.key)
+        out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3
+    return out
 
 
 def card_spec():
@@ -448,9 +514,12 @@ def check_plus_tables(plan, tables, exact, k_sigma, chunk=64):
     return worst
 
 
-def release_phase(name, plan, make_marginals, k_sigma, plus=False):
+def release_phase(name, plan, make_marginals, k_sigma, plus=False,
+                  by_kernel=False):
     """One release on the card with the kernel counts reset just before it
-    and read just after; ``plus`` serves an RP+ plan with PlusEngine."""
+    and read just after; ``plus`` serves an RP+ plan with PlusEngine.
+    ``by_kernel``: then one more release of the same engine under the
+    profiler, its device time split by kernel."""
     from repro_torch.engine import MarginalEngine
     from repro_torch.engine.plus_engine import PlusEngine
     from repro_torch.kernels.kron_matvec.stats import (chain_stats,
@@ -491,6 +560,11 @@ def release_phase(name, plan, make_marginals, k_sigma, plus=False):
           + f"; peak device memory {peak / 2**30:.2f} GiB")
     print(f"[{name}] worst table {worst:.3f} sigma (bound {k_sigma}); "
           f"launches {counts}")
+    if by_kernel:
+        ms = kernel_ms_by_name(lambda: eng.release(
+            margs, torch.Generator("cuda").manual_seed(SEED)))
+        print(f"[{name}] device ms of one more release by kernel: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items())))
     return counts
 
 
@@ -576,8 +650,9 @@ def fresh_tuning(name):
 def phase_autotune(card, groups, adult):
     """[autotune]: pretune the Synth-10^100 and Adult chain groups in measure
     mode (float32, bfloat16 and float16 offered); each group's pick against
-    the model's first pick.  Then the device times of Synth's two 3-way
-    chains under REPRO_KERNEL_AUTOTUNE=off and =model.  Returns the kernel
+    the model's first pick.  Then the times per call (CUDA events) of
+    Synth's two 3-way chains under REPRO_KERNEL_AUTOTUNE=off and =model.
+    Returns the kernel
     counts of the pretuning (the tuned path's own launches)."""
     from repro_torch.kernels.autotune import pretune, tune_chain
     from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
@@ -644,23 +719,26 @@ def phase_autotune(card, groups, adult):
             ("measure", [sub_matrix(10)] * 3, 2 * n3),
             ("reconstruct", u_chain_factors(synth_domain(10, 3), (0, 1, 2)), n3)):
         x = torch.randn((batch, 1000), generator=gen, device="cuda")
-        times, clks = {"off": [], "model": []}, []
+        times, devs, clks = {"off": [], "model": []}, {"off": [], "model": []}, []
         for mode in ("off", "model", "model", "off", "off", "model"):
             os.environ["REPRO_KERNEL_AUTOTUNE"] = mode
             fresh_tuning("modes")
             call = lambda: fused_chain_matvec(  # noqa: E731,B023
                 facs, x, (10, 10, 10), allow_narrow=label == "reconstruct")
-            dev, _ = device_ms(call, 10)
-            times[mode].append(time_ms(call, 10) if dev is None else dev)
+            # The gate reads CUDA events over back-to-back calls: a chain
+            # of this size keeps the card busy between calls, and events,
+            # unlike the profiler, drop no launch (see ``profiled``).
+            times[mode].append(time_ms(call, 10))
+            devs[mode].append(device_ms(call, 10)[0])
             clks.append(clocks())
         os.environ.pop("REPRO_KERNEL_AUTOTUNE")
-        # medians of three alternated runs: one run can land on a slow
-        # moment of the card (seen: 6.1 ms beside 4.9 ms for one launch)
+        # medians of three alternated runs
         off, model = (sorted(times[m])[1] for m in ("off", "model"))
         mode_ms[label] = (off, model)
-        print(f"[autotune] Synth-10^{SYNTH_D} 3-way {label} chain device time: "
-              f"off {off:.4f} ms, model {model:.4f} ms (ratio {model / off:.3f}; "
-              f"runs {times}; clocks after each run {clks}) | {card}")
+        print(f"[autotune] Synth-10^{SYNTH_D} 3-way {label} chain, CUDA events "
+              f"per call: off {off:.4f} ms, model {model:.4f} ms (ratio "
+              f"{model / off:.3f}; runs {times}; profiler device ms {devs}; "
+              f"clocks after each run {clks}) | {card}")
         if not model <= 1.1 * off:
             raise AssertionError(f"model mode slowed the {label} chain: "
                                  f"{model:.4f} vs {off:.4f} ms")
@@ -793,7 +871,7 @@ def main() -> int:
     adult_counts = release_phase(
         "adult", plan, lambda: marginals_from_records(
             adult, plan.cliques, synthetic_records(adult, ADULT_RECORDS, SEED)),
-        6.0)
+        6.0, by_kernel=True)
     if not (adult_counts["fused_launches"] > 0
             and adult_counts["axis_launches"] > 0):
         raise AssertionError(f"Adult release skipped a kernel: {adult_counts}")
@@ -804,7 +882,7 @@ def main() -> int:
     print(f"[synth] select {time.perf_counter() - t0:.3f} s")
     synth_counts = release_phase(
         "synth", splan, lambda: mixture_marginals(
-            synth, splan.cliques, 1e6, SEED), 7.0)
+            synth, splan.cliques, 1e6, SEED), 7.0, by_kernel=True)
     if not synth_counts["fused_launches"] > 0:
         raise AssertionError(f"Synth release skipped the fused kernel: {synth_counts}")
 

@@ -59,6 +59,7 @@ from .stats import CHAIN_STATS
 _SMEM_BUDGET = 232448   # 227 KB of shared memory per Hopper block
 _TARGET_ELEMS = 4096    # aim for this many elements per buffer per block
 _MAX_AXES = 16          # fused_chain.cu's kMaxAxes
+_EXACT_CAP = 16         # fused_chain.cu's kExactCap: registers for exactly n
 
 # Operand types of the kernel's three instantiations: (torch dtype, bytes,
 # the launcher's dtype code).
@@ -88,7 +89,7 @@ class ChainPlan:
     n_in: int                                       # prod(in_dims)
     n_out: int                                      # prod(out_dims)
     buf: int           # elements of one ping-pong buffer: the widest intermediate
-    nf: int            # elements of all factors
+    nf: int            # elements of all factors, rows padded to pad4(n_i)
     rows: int          # batch rows per block
     smem_bytes: int    # factors + 2 * rows * buf elements, at the operand size
     fused_ok: bool     # fits the shared-memory budget?
@@ -98,6 +99,70 @@ class ChainPlan:
     @property
     def signature(self) -> tuple:
         return (self.in_dims, self.fshapes, self.epilogue, self.compute_dtype)
+
+
+def pad4(n: int) -> int:
+    """``n`` rounded up to a multiple of 4: the packed row length of a factor
+    with n columns (the kernel reads a factor row four values at a time)."""
+    return -(-int(n) // 4) * 4
+
+
+def axis_cap(n: int) -> int:
+    """How the kernel contracts an axis of n inputs: n (up to 16), a line's
+    inputs in a register array of that length, one thread a line; 0 (above
+    16), streamed, one thread per 4 outputs of a line."""
+    return int(n) if n <= _EXACT_CAP else 0
+
+
+@dataclass(frozen=True)
+class FusedAxis:
+    """One axis of a fused launch, as ``fused_chain.cu``'s ``Axis`` takes it.
+
+    Before the axis the block's ``rows`` rows hold the tensor
+    (rows * pre, n, post) contiguously; a line (o, t), o < rows * pre,
+    t < post, reads x[o, :, t] and writes y[o, :, t] (m outputs).  With
+    ``cap == n`` a thread owns a line; with ``cap == 0`` a thread owns an
+    item, 4 consecutive outputs of a line (:meth:`items`).  The epilogue
+    scans the lines (o, t), t < epost, of the output tensor
+    (rows * pre, m, epost).
+    """
+
+    n: int
+    m: int
+    off: int     # offset of the packed factor (rows of pad4(n)); -1: identity
+    epi: int     # 1: 'cumsum' along the axis after the chain
+    pre: int     # prod of the output sizes before the axis
+    post: int    # prod of the input sizes after it
+    epost: int   # prod of the output sizes after it
+    cap: int     # axis_cap(n): n (registers) or 0 (streamed); 0 if identity
+
+    def lines(self, rows: int) -> int:
+        """Lines of the contraction for ``rows`` rows."""
+        return rows * self.pre * self.post
+
+    def items(self, rows: int) -> int:
+        """Threads' work items for ``rows`` rows: a line each with cap n,
+        4 outputs of a line each when streamed."""
+        lines = self.lines(rows)
+        return lines if self.cap else lines * -(-self.m // 4)
+
+
+@lru_cache(maxsize=4096)
+def fused_geometry(plan: "ChainPlan") -> Tuple[FusedAxis, ...]:
+    """Per-axis launch geometry of ``plan``: the records the launcher passes
+    to the kernel (``fused_chain.cu``'s ``Axis``, 8 ints each)."""
+    out, off = [], 0
+    k = len(plan.in_dims)
+    for a, (spec, n, m) in enumerate(zip(plan.fshapes, plan.in_dims,
+                                         plan.out_dims)):
+        live = spec is not None
+        out.append(FusedAxis(
+            n, m, off if live else -1,
+            int(plan.epilogue[a] == "cumsum"),
+            math.prod(plan.out_dims[:a]), math.prod(plan.in_dims[a + 1:k]),
+            math.prod(plan.out_dims[a + 1:k]), axis_cap(n) if live else 0))
+        off += m * pad4(n) if live else 0
+    return tuple(out)
 
 
 def fit_rows(nf: int, buf: int, compute_dtype: str, budget: int) -> int:
@@ -157,7 +222,7 @@ def _plan(fshapes, dims, batch, budget, epilogue, rows, compute_dtype
             cur[axis] = spec[0]
             sizes.append(math.prod(cur))
     buf = max(sizes)
-    nf = sum(m * n for s in fshapes if s is not None for m, n in [s])
+    nf = sum(m * pad4(n) for s in fshapes if s is not None for m, n in [s])
     if rows is None:
         fit = fit_rows(nf, buf, compute_dtype, budget)
         rows = max(1, min(fit, max(int(batch), 1),
@@ -181,9 +246,10 @@ def plan_chain(factors: Sequence, dims: Sequence[int], batch: int = 1,
     ``smem_budget`` (default: the 227 KB a Hopper block may use); an explicit
     ``rows`` is planned as given, and ``fused_ok`` says whether it fits.
     Factors and buffers count at the operand size of ``compute_dtype``
-    (4 bytes for float32, 2 for bfloat16 and float16).  ``epilogue[i]`` is
-    ``'cumsum'`` or None per axis; the kernel scans in place, so it changes
-    neither ``rows`` nor ``fused_ok``.
+    (4 bytes for float32, 2 for bfloat16 and float16), each factor with its
+    rows padded to a multiple of 4 columns, as the kernel stages it.
+    ``epilogue[i]`` is ``'cumsum'`` or None per axis; the kernel scans in
+    place, so it changes neither ``rows`` nor ``fused_ok``.
     """
     return plan_shapes(factor_shapes(factors, dims), dims, batch, smem_budget,
                        epilogue, rows, compute_dtype)
@@ -219,9 +285,9 @@ def _lib():
     if fn.argtypes is None:
         ip = ctypes.POINTER(ctypes.c_int)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ip, ip, ip, ip,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_int, ip, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -277,33 +343,48 @@ def fused_chain_matvec_plain(s_facs: Sequence, x: torch.Tensor,
     return apply_epilogue(y, out_dims, epilogue).float()
 
 
+def pack_factors(plan: ChainPlan, s_facs: Sequence[Optional[np.ndarray]]
+                 ) -> np.ndarray:
+    """The live factors in one float32 array of ``plan.nf`` elements, each
+    (m, n) factor at its geometry offset with rows padded to pad4(n) by
+    zeros."""
+    f = np.zeros(plan.nf, dtype=np.float32)
+    for ax, s in zip(fused_geometry(plan), s_facs):
+        if s is not None:
+            ld = pad4(ax.n)
+            f[ax.off:ax.off + ax.m * ld].reshape(ax.m, ld)[:, :ax.n] = s
+    return f
+
+
+@lru_cache(maxsize=4096)
+def _geometry_arg(plan: ChainPlan):
+    """The launcher's geometry argument: the records of
+    :func:`fused_geometry` as one C int array (built once per plan; the
+    launcher only reads it)."""
+    flat = [v for ax in fused_geometry(plan)
+            for v in (ax.n, ax.m, ax.off, ax.epi, ax.pre, ax.post, ax.epost,
+                      ax.cap)]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
 def _launch(plan: ChainPlan, s_facs: Sequence[Optional[np.ndarray]],
             x: torch.Tensor) -> torch.Tensor:
     b = x.shape[0]
-    k = len(plan.in_dims)
     dt, _, code = _OPERANDS[plan.compute_dtype]
-    live = [s for s in s_facs if s is not None]
-    offs, pos = [], 0
-    for s in s_facs:
-        offs.append(-1 if s is None else pos)
-        pos += 0 if s is None else s.size
     # Packed and rounded to the operand type on the host: one copy.
-    f = torch.from_numpy(np.concatenate([s.ravel() for s in live])).to(dt)
-    f = f.to(x.device)
-    epi = [int(op == "cumsum") for op in plan.epilogue]
-    arr = ctypes.c_int * k
+    f = torch.from_numpy(pack_factors(plan, s_facs)).to(dt).to(x.device)
     y = torch.empty((b, plan.n_out), dtype=torch.float32, device=x.device)
     if b == 0:
         return y
     with torch.cuda.device(x.device):
-        rc = _lib()(x.data_ptr(), y.data_ptr(), f.data_ptr(), b, k,
-                    arr(*plan.in_dims), arr(*plan.out_dims), arr(*offs),
-                    arr(*epi), pos, plan.rows, plan.buf, code,
-                    torch.cuda.current_stream().cuda_stream)
+        rc = _lib()(x.data_ptr(), y.data_ptr(), f.data_ptr(), b,
+                    len(plan.in_dims), _geometry_arg(plan), plan.nf,
+                    plan.rows, plan.buf, -(-b // plan.rows), plan.smem_bytes,
+                    code, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_chain kernel launch failed: CUDA error {rc}")
     CHAIN_STATS.inc("fused_launches")
-    if any(epi):
+    if any(op == "cumsum" for op in plan.epilogue):
         CHAIN_STATS.inc("epilogue_launches")
     if code:
         CHAIN_STATS.inc("narrow_launches")

@@ -11,31 +11,54 @@ on CPU tensors.  It replaces the JAX package's Pallas kernel
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from .._build import load
 from .stats import CHAIN_STATS
 
-_TILE = 128                 # (l, r) columns per block; halved until S fits
-_MIN_TILE = 32
-_SMEM_MAX = 232448          # 227 KB: what one Hopper block may use
+# The kernel's tile (kron_axis.cu's Tile): 128 threads, each an 8 x 4
+# micro-tile; wq warps along q (32 q each) by 4 / wq along the columns (32
+# columns each); k staged 8 at a time.
+_BK, _TM, _TN = 8, 8, 4
 
 
-def _axis_smem_bytes(n: int, m: int, tile: int) -> int:
-    """Shared memory of one launch: S (m, n) plus the (n, tile + 1) slab."""
-    return 4 * (m * n + n * (tile + 1))
+@dataclass(frozen=True)
+class AxisGeometry:
+    """The launch of one per-axis kernel call: tile sizes, 2-D grid
+    (q tiles, column tiles) and static shared memory."""
+
+    bm: int
+    bn: int
+    bk: int
+    tm: int
+    tn: int
+    grid_q: int        # tiles of q: blockIdx.y
+    grid_c: int        # tiles of the L * R columns: blockIdx.x
+    smem_bytes: int    # S and x chunks and the result tile, float32
+
+    @property
+    def blocks(self) -> int:
+        return self.grid_q * self.grid_c
+
+    @property
+    def threads(self) -> int:
+        return (self.bm // self.tm) * (self.bn // self.tn)
 
 
-def axis_tile(n: int, m: int) -> int:
-    """Columns per block for an (m, n) factor; raises if S cannot fit."""
-    tile = _TILE
-    while _axis_smem_bytes(n, m, tile) > _SMEM_MAX and tile > _MIN_TILE:
-        tile //= 2
-    if _axis_smem_bytes(n, m, tile) > _SMEM_MAX:
-        raise ValueError(f"factor ({m}, {n}) does not fit a block's shared "
-                         f"memory ({_SMEM_MAX} bytes)")
-    return tile
+def axis_geometry(L: int, n: int, R: int, m: int) -> AxisGeometry:
+    """Geometry of ``o (L, m, R) = S (m, n) · x (L, n, R)``.
+
+    The tile follows m: 128 q by 32 columns when m > 64 (x read once, many
+    narrow tiles), 64 by 64 when m > 32, else 32 by 128.  Every shape fits:
+    k is staged in chunks, so shared memory does not grow with S.
+    """
+    wq = 4 if m > 64 else 2 if m > 32 else 1
+    bm, bn = 32 * wq, 32 * (4 // wq)
+    smem = 4 * (_BK * (bm + 4) + _BK * (bn + 4) + bn * (bm + 1))
+    return AxisGeometry(bm, bn, _BK, _TM, _TN, -(-int(m) // bm),
+                        -(-int(L) * int(R) // bn), smem)
 
 
 def _lib():
@@ -44,7 +67,9 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -82,7 +107,7 @@ def kron_axis_matvec(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {x.device}")
     L, n, R = x.shape
     m = s.shape[0]
-    tile = axis_tile(n, m)
+    g = axis_geometry(L, n, R, m)
     s = s.contiguous()
     x = x.contiguous()
     out = torch.empty((L, m, R), dtype=torch.float32, device=x.device)
@@ -90,7 +115,8 @@ def kron_axis_matvec(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return out
     with torch.cuda.device(x.device):
         rc = _lib()(s.data_ptr(), x.data_ptr(), out.data_ptr(), L, n, R, m,
-                    tile, torch.cuda.current_stream().cuda_stream)
+                    g.bm, g.bn, g.bk, g.grid_q, g.grid_c, g.smem_bytes,
+                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kron_axis kernel launch failed: CUDA error {rc}")
     CHAIN_STATS.inc("axis_launches")

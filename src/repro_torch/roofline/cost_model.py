@@ -15,17 +15,19 @@ this module re-derives the two costs for the CUDA kernels of this package:
   ``tril``).
 * :meth:`CostModel.per_axis_cost` — the per-axis route: one launch of
   ``csrc/kron_axis.cu`` per live axis (each a full round trip through device
-  memory), then one ``torch.cumsum`` per marked axis.
+  memory) at the tile and grid of ``axis_geometry``, then one
+  ``torch.cumsum`` per marked axis.
 
 Both take the roofline time, ``max(operations / peak, bytes / bandwidth)``,
 scale it by what the launch shape costs (:meth:`CostModel.occupancy_slowdown`)
 and add one launch overhead per launch.  CUDA blocks run at once across the
 SMs, so there is no per-block overhead; what a launch shape costs is low
 occupancy: fewer blocks than SMs leave SMs idle, and few warps on an SM (the
-blocks an SM holds are limited by its shared memory and by 256 threads a
-block) leave its latency unhidden.  A launch with more, smaller blocks is
-never scored slower for that alone: only the factor bytes each extra block
-stages cost it anything.
+blocks an SM holds are limited by its shared memory, its registers and its
+threads) leave its latency unhidden.  The per-axis kernel's threads carry 32
+independent sums each, so fewer warps hide its latency.  A launch with more,
+smaller blocks is never scored slower for that alone: only the factor bytes
+each extra block stages cost it anything.
 
 The ``"cpu"`` row scores the plain PyTorch versions that serve CPU tensors:
 a fixed cost per torch operation plus the bytes they touch.  The fused and
@@ -39,9 +41,21 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-_THREADS = 256               # threads a block, both kernels (kThreads)
+from repro_torch.kernels.kron_matvec.fused import fused_geometry, pad4
+from repro_torch.kernels.kron_matvec.kron_matvec import axis_geometry
+
+_THREADS = 256               # threads a block of the fused kernel (kThreads)
 _SATURATING_WARPS = 32       # warps an SM needs in flight to reach its rates
+# ... for the per-axis kernel, whose threads each run 32 independent FMA
+# chains (an 8 x 4 micro-tile): 2 warps a scheduler keep its FMA pipes busy,
+# where the fused kernel's threads run 1 to 4 chains.
+_AXIS_SATURATING_WARPS = 8
 _BLOCK_SMEM_RESERVED = 1024  # shared memory the runtime keeps for each block
+# Registers a thread of each kernel uses at most over its instantiations:
+# `nvcc -Xptxas -v` for sm_90a (chip_smoke.py prints it in its [build]
+# phase).
+_FUSED_REGS = 48
+_AXIS_REGS = 109
 
 
 @dataclass(frozen=True)
@@ -66,6 +80,7 @@ class DeviceSpec:
     sms: int = 0                 # streaming multiprocessors; 0: plain versions
     smem_per_sm: int = 0         # shared memory bytes of one SM
     threads_per_sm: int = 2048   # resident threads an SM may hold
+    regs_per_sm: int = 65536     # 32-bit registers of one SM
 
     @property
     def plain(self) -> bool:
@@ -165,6 +180,14 @@ def chain_flops(in_dims: Sequence[int],
     return flops + math.prod(cur) * sum(op is not None for op in epilogue or ())
 
 
+def fused_fmas(plan) -> int:
+    """FMAs the fused kernel issues for ONE row of ``plan``: n for each
+    output of a register axis; on a streamed axis pad4(n) for each of the 4
+    outputs of every item (fused_chain.cu's contract_streamed)."""
+    return sum(ax.items(1) * (ax.m * ax.n if ax.cap else 4 * pad4(ax.n))
+               for ax in fused_geometry(plan) if ax.off >= 0)
+
+
 def chain_bytes(in_dims: Sequence[int],
                 fshapes: Sequence[Optional[Tuple[int, int]]], batch: int,
                 factor_itemsize: int = 4) -> int:
@@ -183,33 +206,43 @@ class CostModel:
         self.device = detect_device() if device is None else device
 
     # ------------------------------------------------------------- occupancy
-    def blocks_per_sm(self, smem_bytes: int) -> int:
-        """Blocks of 256 threads one SM holds at this shared memory (0: none)."""
+    def blocks_per_sm(self, smem_bytes: int, regs: int = 0,
+                      threads: int = _THREADS) -> int:
+        """Blocks of ``threads`` threads one SM holds at this shared memory
+        and ``regs`` registers a thread (0: registers not counted); 0 when
+        the block does not fit."""
         dev = self.device
         if smem_bytes > dev.smem_limit:
             return 0
-        return min(dev.threads_per_sm // _THREADS,
-                   dev.smem_per_sm // (smem_bytes + _BLOCK_SMEM_RESERVED))
+        bps = min(dev.threads_per_sm // threads,
+                  dev.smem_per_sm // (smem_bytes + _BLOCK_SMEM_RESERVED))
+        if regs:
+            bps = min(bps, dev.regs_per_sm // (regs * threads))
+        return bps
 
-    def occupancy_slowdown(self, blocks: int, smem_bytes: int) -> float:
+    def occupancy_slowdown(self, blocks: int, smem_bytes: int,
+                           regs: int = 0, threads: int = _THREADS,
+                           saturating: int = _SATURATING_WARPS) -> float:
         """Time of the launch over its time at the full rate of every SM.
 
         The busiest SM gets ceil(blocks / SMs) blocks and runs them in
         rounds of at most ``blocks_per_sm``; a round of k blocks runs at
-        min(1, 8k / 32) of the SM's rate (8 warps a block, 32 warps to hide
-        latency).  The ideal is blocks / SMs block-times at the full rate.
+        min(1, w k / saturating) of the SM's rate (w warps a block;
+        ``saturating`` warps hide latency, 32 unless the kernel's threads
+        carry more independent work).  The ideal is blocks / SMs block-times
+        at the full rate.
         """
         dev = self.device
-        bps = self.blocks_per_sm(smem_bytes)
+        bps = self.blocks_per_sm(smem_bytes, regs, threads)
         if bps < 1:
             return math.inf
         blocks = max(int(blocks), 1)
         per_sm = -(-blocks // dev.sms)
-        warps = _THREADS // 32
+        warps = threads // 32
         full, rest = divmod(per_sm, bps)
-        t = full * bps / min(1.0, warps * bps / _SATURATING_WARPS)
+        t = full * bps / min(1.0, warps * bps / saturating)
         if rest:
-            t += rest / min(1.0, warps * rest / _SATURATING_WARPS)
+            t += rest / min(1.0, warps * rest / saturating)
         return t / (blocks / dev.sms)
 
     # ------------------------------------------------------------ plain (CPU)
@@ -241,7 +274,14 @@ class CostModel:
 
     # ------------------------------------------------------------ fused chain
     def chain_cost(self, plan, batch: int) -> ChainCost:
-        """Cost of one fused launch of ``plan`` on a (batch, n_in) stack."""
+        """Cost of one fused launch of ``plan`` on a (batch, n_in) stack.
+
+        The compute time counts the FMAs the kernel issues
+        (:func:`fused_fmas`: a streamed axis multiplies its zero padding up
+        to pad4(n) and to 4 outputs an item); ``flops`` stays the chain's
+        own.  Occupancy counts the kernel's registers as well as its shared
+        memory.
+        """
         dev = self.device
         b = max(int(batch), 1)
         blocks = -(-b // plan.rows)
@@ -257,9 +297,11 @@ class CostModel:
                                  plan.compute_dtype)
             return ChainCost(flops, hbm, flops / hbm, blocks, plan.smem_bytes,
                              fits, 1.0, t, t, 0.0, t)
-        t_c = flops / dev.peak_for(plan.compute_dtype)
+        issued = flops + 2.0 * b * (fused_fmas(plan) - chain_flops(
+            plan.in_dims, plan.fshapes) // 2)
+        t_c = issued / dev.peak_for(plan.compute_dtype)
         t_m = hbm / dev.hbm_bw
-        slow = self.occupancy_slowdown(blocks, plan.smem_bytes)
+        slow = self.occupancy_slowdown(blocks, plan.smem_bytes, _FUSED_REGS)
         return ChainCost(flops, hbm, flops / hbm, blocks, plan.smem_bytes,
                          fits, slow, t_c, t_m, dev.launch_s,
                          max(t_c, t_m) * slow + dev.launch_s)
@@ -271,10 +313,13 @@ class CostModel:
                       epilogue: Sequence[Optional[str]] = ()) -> float:
         """Seconds of the per-axis route: one kron_axis.cu launch per live
         axis, its input and output through device memory each time, then one
-        torch.cumsum per marked axis.  ``inf`` if a factor does not fit a
-        block."""
-        from repro_torch.kernels.kron_matvec.kron_matvec import (
-            _axis_smem_bytes, axis_tile)
+        torch.cumsum per marked axis.
+
+        A launch is scored at its geometry (``axis_geometry``): the FMAs of
+        whole warp tiles (q rounded up to a warp's 32, k to the 8-value
+        chunk, columns to the tile), x read once per q tile and S once per
+        column tile, and the occupancy of its 2-D grid of 128-thread blocks.
+        """
         dev = self.device
         b = max(int(batch), 1)
         if dev.plain:
@@ -287,16 +332,16 @@ class CostModel:
             m, n = spec
             L = b * math.prod(cur[:axis])
             R = math.prod(cur[axis + 1:])
-            try:
-                tile = axis_tile(n, m)
-            except ValueError:
-                return math.inf
-            blocks = -(-(L * R) // tile)
-            nbytes = 4.0 * (L * n * R + L * m * R + blocks * m * n)
-            t = max(2.0 * L * m * n * R / dev.peak_flops_f32,
-                    nbytes / dev.hbm_bw)
+            g = axis_geometry(L, n, R, m)
+            flops = (2.0 * g.grid_c * g.bn * -(-m // 32) * 32
+                     * -(-n // g.bk) * g.bk)
+            nbytes = 4.0 * (g.grid_q * L * n * R + L * m * R
+                            + g.grid_c * m * n)
+            t = max(flops / dev.peak_flops_f32, nbytes / dev.hbm_bw)
             total += t * self.occupancy_slowdown(
-                blocks, _axis_smem_bytes(n, m, tile)) + dev.launch_s
+                g.blocks, g.smem_bytes, _AXIS_REGS, g.threads,
+                _AXIS_SATURATING_WARPS) \
+                + dev.launch_s
             cur[axis] = m
         n_out = b * math.prod(cur)
         for op in epilogue or ():

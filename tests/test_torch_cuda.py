@@ -364,3 +364,97 @@ def test_narrow_clamp_on_card(cuda, tmp_path, monkeypatch):
     assert chain_stats()["narrow_launches"] == 1
     assert _rel(served, clamped) < 3e-2
     reset_registry()
+
+
+# ------------------------------------------------------------ ragged shapes
+# Fused chains over both contractions of the kernel: the register path
+# (n <= 16) and the streamed one (n = 17, 40, 100, 130, with m = 5, 3, 99,
+# 7 leaving a ragged group of 4 outputs), identity axes, row widths that
+# leave the staging unaligned (21, 35), and batches that leave the last
+# block ragged.  (dims, factor shapes (None:
+# identity), batch, epilogue)
+RAGGED_FUSED = [
+    ((17, 6), [(5, 17), (6, 6)], 9, None),
+    ((3, 7), [(2, 3), None], 13, None),
+    ((40, 5), [None, (3, 5)], 7, ("cumsum", None)),
+    ((2, 100), [(1, 2), (99, 100)], 5, None),
+    ((130,), [(7, 130)], 33, None),
+    ((5, 7, 9), [(5, 5), None, (4, 9)], 31, ("cumsum", "cumsum", None)),
+    ((1, 16, 3), [(2, 1), (16, 16), (1, 3)], 101, (None, "cumsum", None)),
+]
+
+
+def _ragged_fused(case, seed):
+    dims, shapes, batch, epi = case
+    rng = np.random.default_rng(seed)
+    facs = [None if sh is None else rng.standard_normal(sh).astype(np.float32)
+            for sh in shapes]
+    x = rng.standard_normal((batch, math.prod(dims)))
+    return dims, facs, x, epi
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", RAGGED_FUSED)
+def test_fused_kernel_ragged_shapes_match_plain(cuda, case, cd):
+    """Both contractions and the staging edges against the plain version at
+    each operand type: float32 within REL; narrow bit for bit without an
+    epilogue (bf16/fp16 products are exact in float32), within its
+    tolerance with one."""
+    dims, facs, x, epi = _ragged_fused(case, 15)
+    x = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    for rows in (None, 1, 3):
+        reset_chain_stats()
+        got = fused_chain_matvec(facs, x, dims, epilogue=epi, rows=rows,
+                                 compute_dtype=cd)
+        assert chain_stats()["fused_launches"] == 1
+        want = fused_chain_matvec_plain(facs, x, dims, epi, cd)
+        assert got.shape == want.shape
+        if cd == "float32":
+            assert _rel(got, want) < REL
+        elif epi is None:
+            assert torch.equal(got, want)
+        else:
+            assert _rel(got, want) < NARROW_TOL[cd]
+
+
+@pytest.mark.parametrize("case", [c for c in RAGGED_FUSED if c[3] is None])
+def test_fused_and_per_axis_kernels_agree_on_ragged_shapes(cuda, case):
+    """The summation contract across both contractions and the per-axis
+    kernel's k chunks: fused == per-axis bit for bit, at every rows."""
+    dims, facs, x, _ = _ragged_fused(case, 16)
+    x = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    per_axis = fused_chain_matvec(facs, x, dims, smem_budget=16)
+    for rows in (None, 1, 2, 7):
+        reset_chain_stats()
+        fused = fused_chain_matvec(facs, x, dims, rows=rows,
+                                   smem_budget=232448)
+        assert chain_stats()["fused_launches"] == 1
+        assert torch.equal(fused, per_axis)
+
+
+@pytest.mark.parametrize("L,n,R,m", [
+    (1, 17, 1, 1), (3, 33, 1, 3), (7, 16, 129, 8), (2, 130, 3, 65),
+    (300, 5, 1, 130), (1, 1000, 2, 9), (129, 64, 1, 64), (5, 2, 7001, 2),
+    (3, 9, 5, 40), (2, 100, 10000, 99),
+])
+def test_axis_kernel_ragged_tiles_match_plain(cuda, L, n, R, m):
+    """Each tile shape (m <= 32, <= 64, above), m below a lane row's 8 q and
+    above one 128-q tile, n across several 8-value chunks, L * R off the
+    tile's columns, R == 1 and R > 1."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    s = torch.randn((m, n), generator=gen, device=cuda)
+    x = torch.randn((L, n, R), generator=gen, device=cuda)
+    reset_chain_stats()
+    got = kron_axis_matvec(s, x)
+    assert chain_stats()["axis_launches"] == 1
+    assert got.shape == (L, m, R)
+    assert _rel(got, kron_axis_matvec_plain(s, x)) < REL
+    # the per-axis sum order is the fused kernel's where the chain fits
+    from repro_torch.kernels.kron_matvec.fused import plan_chain
+    facs = [None, s.cpu().numpy(), None]
+    if plan_chain(facs, (L, n, R)).fused_ok:
+        reset_chain_stats()
+        fused = fused_chain_matvec(facs, x.reshape(1, -1), (L, n, R),
+                                   smem_budget=232448)
+        assert chain_stats()["fused_launches"] == 1
+        assert torch.equal(fused.reshape(L, m, R), got)
