@@ -43,8 +43,33 @@ Phases, in order; any failure exits non-zero:
    REPRO_KERNEL_COMPUTE_DTYPES=bfloat16: measure chains at float32,
    reconstruct chains on the fused kernel at bf16 (narrow launches > 0),
    every table within rel 3e-2 of its group's max |float32 table|.
-9. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+9. [select-device] select_max_variance(backend="device") on the card:
+   Adult <=3-way against the numpy loop (losses, float64 primal-dual gaps,
+   seconds), and Synth-10^100 <=3-way (about 1.3M incidence entries) alone
+   (seconds, iterations, gap; loss at most the SoV plan's max variance).
+10. [select-convex] select_convex(loss="max_variance") on Adult <=3-way on
+   the card and with device="cpu" (seconds, ratio to the max-variance
+   optimum), and the l2 norm of the variance vector as a user callable.
+11. [secure-adult] the secure discrete release (plan.engine(secure=True),
+   digits=4) of the Adult <=3-way SoV plan on the [adult] records: every
+   table within 6 sigma (sigma^2_A replaced by the engine's sigma-bar^2_A);
+   tier counts; seconds split into draws, H, Y-dagger and reconstruct;
+   device ms by kernel of one more measure + reconstruct with the draws
+   replaced by zeros; both kernels launched, H and Y-dagger at float32
+   only; every device-tier group's float32 H equal to the host int64 H bit
+   for bit.
+12. [secure-synth2] the same on Synth-10^100 all <=2-way (5,051 cliques) over
+   the marginals of 4,000 seeded records: every group's H on the device
+   tier (the 2-way bound is 4,000 * 400 * 10 < 2^24), 7 sigma per table,
+   the same bit-for-bit H check.
+13. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel) and, last, {"ok": true, "device": {...}}.
+
+Phase 2 also pushes the exactness edge of the secure path's H chain through
+both kernels: an H chain on (10, 10) whose one nonzero cell holds
+floor((2^24 - 1) / 4000) must equal the int64 H on the fused kernel and on a
+forced per-axis route, and one count more must send a DiscreteEngine to its
+int64 tier.
 
 The main path runs the autotuner in its default mode (model) from an empty
 cache under build/; the tuner's picks go to build/autotune_picks.json.
@@ -73,6 +98,8 @@ NARROW_NAME = {"bfloat16": "fused_chain_bf16", "float16": "fused_chain_fp16"}
 BF16_RELEASE_TOL = 3e-2   # of a group's max |fp32 table|
 SYNTH_D = 100
 ADULT_RECORDS = 48842  # rows of the Adult data set
+SYNTH2_RECORDS = 4000  # [secure-synth2]: every 2-way H bound below 2^24
+F32_EXACT = 1 << 24    # integers below this are exact in float32
 SEED = 0
 
 
@@ -842,6 +869,272 @@ def phase_adult_bf16(card, adult, plan, margs):
     return counts
 
 
+def phase_exact_edge(card):
+    """The secure H chain at its float32 bound: (10, 10), all of
+    ||v||_1 = floor((2^24 - 1) / 4000) in one cell, on the fused kernel and
+    on a forced per-axis route; both must equal the int64 H exactly.  One
+    count more sends a DiscreteEngine's group to the int64 tier."""
+    from repro_torch.core import Domain, all_kway, select_sum_of_variances
+    from repro_torch.core.discrete import h_factors
+    from repro_torch.core.kron import kron_matvec_np_batched
+    from repro_torch.engine import DiscreteEngine
+    from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    dims = (10, 10)
+    l1 = (F32_EXACT - 1) // (400 * 10)
+    vs = np.zeros((1, 100))
+    vs[0, 37] = l1
+    want = kron_matvec_np_batched(h_factors(dims, np.int64),
+                                  vs.astype(np.int64), dims).astype(np.float64)
+    x = torch.as_tensor(vs, dtype=torch.float32, device="cuda")
+    for route, budget, launch in (("fused", 232448, "fused_launches"),
+                                  ("per-axis", 16, "axis_launches")):
+        reset_chain_stats()
+        got = fused_chain_matvec(h_factors(dims), x, dims, smem_budget=budget)
+        torch.cuda.synchronize()
+        if not chain_stats()[launch] > 0:
+            raise AssertionError(f"the {route} route did not launch: "
+                                 f"{chain_stats()}")
+        if not np.array_equal(got.cpu().numpy().astype(np.float64), want):
+            raise AssertionError(f"H at the float32 bound differs from int64 "
+                                 f"H on the {route} route")
+    plan = select_sum_of_variances(all_kway(Domain.create([10, 10]), 2), 1.0)
+    eng = DiscreteEngine(plan, device="cuda")
+    eng._h_transform(vs, dims)
+    vs[0, 37] = l1 + 1
+    eng._h_transform(vs, dims)
+    if not (eng.stats.device_h_groups == 1 and eng.stats.exact_h_groups == 1):
+        raise AssertionError(f"the H tiers do not switch at the bound: "
+                             f"{eng.stats}")
+    print(f"[exact-edge] H on (10, 10) with ||v||_1 = {l1} in one cell "
+          f"(bound {l1 * 4000} < 2^24): fused and per-axis routes equal int64 "
+          f"H bit for bit; ||v||_1 = {l1 + 1} takes the int64 tier | {card}")
+
+
+def maxvar_gap(plan):
+    """(primal, dual, relative gap) of a max-variance plan at its dual
+    point, in float64 on the host."""
+    from repro_torch.core.select import _maxvar_eval_fp64
+    t = plan.table
+    cw = t.weight_vector(None, default_to_workload=True)
+    primal, _u, dual = _maxvar_eval_fp64(plan.mu, t.p, t.inc_rows, t.inc_cols,
+                                         t.inc_vals, cw, plan.pcost, t.n, t.m)
+    return primal, dual, (primal - dual) / primal
+
+
+def phase_select_device(card, adult_wk, synth_wk, synth_sov):
+    """[select-device]: the device max-variance loop on the card.  Returns
+    Adult's max-variance optimum (the numpy loop's loss)."""
+    import importlib
+    # the module (the package's ``select`` attribute is the function)
+    sel = importlib.import_module("repro_torch.core.select")
+    iters = [0]
+    run_chunk = sel._maxvar_run_chunk
+
+    def counted(*a):
+        iters[0] += a[-1]
+        return run_chunk(*a)
+    sel._maxvar_run_chunk = counted
+    t0 = time.perf_counter()
+    host = sel.select_max_variance(adult_wk, 1.0, backend="numpy")
+    t1 = time.perf_counter()
+    dev = sel.select_max_variance(adult_wk, 1.0, backend="device",
+                                  device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    adult_iters = iters[0]
+    _p, _d, g_host = maxvar_gap(host)
+    _p, _d, g_dev = maxvar_gap(dev)
+    print(f"[select-device] Adult <=3-way ({adult_wk.domain.n_attrs} attrs, "
+          f"{sel.plan_table(adult_wk).inc_vals.size} incidence entries): "
+          f"numpy loss {host.loss_value:.9g} (gap {g_host:.3e}, "
+          f"{t1 - t0:.3f} s), device loss {dev.loss_value:.9g} (gap "
+          f"{g_dev:.3e}, {adult_iters} iterations, {t2 - t1:.3f} s) | {card}")
+    if not abs(dev.loss_value - host.loss_value) <= \
+            (g_host + g_dev) * host.loss_value + 1e-12 * host.loss_value:
+        raise AssertionError("device and numpy max-variance disagree beyond "
+                             "their gaps")
+    iters[0] = 0
+    t0 = time.perf_counter()
+    sdev = sel.select_max_variance(synth_wk, 1.0, backend="device",
+                                   device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sel._maxvar_run_chunk = run_chunk
+    _p, _d, g = maxvar_gap(sdev)
+    sov_max = synth_sov.max_variance()
+    print(f"[select-device] Synth-10^{SYNTH_D} <=3-way "
+          f"({sel.plan_table(synth_wk).inc_vals.size} incidence entries): "
+          f"device loop {secs:.3f} s, {iters[0]} iterations, loss "
+          f"{sdev.loss_value:.9g}, gap {g:.3e}; SoV plan's max variance "
+          f"{sov_max:.9g} | {card}")
+    if not sdev.loss_value <= sov_max:
+        raise AssertionError("the device max-variance plan is worse than SoV")
+    return host.loss_value
+
+
+def phase_select_convex(card, adult_wk, opt):
+    """[select-convex]: select_convex on Adult on the card and on the CPU,
+    and a user callable (the l2 norm of the variance vector)."""
+    from repro_torch.core import select, select_convex
+    out = {}
+    for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        plan = select_convex(adult_wk, 1.0, loss="max_variance", device=dev)
+        out[where] = (plan.loss_value, time.perf_counter() - t0)
+        if not (plan.loss_value >= opt * (1 - 1e-9)
+                and abs(plan.pcost - 1.0) <= 1e-9):
+            raise AssertionError(f"select_convex on {dev} below the optimum "
+                                 f"or off budget: {plan.loss_value}, "
+                                 f"{plan.pcost}")
+
+    def l2_of_variances(var):
+        return torch.sqrt(torch.sum(var * var))
+    t0 = time.perf_counter()
+    p2 = select(adult_wk, 1.0, objective="convex", loss=l2_of_variances,
+                device="cuda")
+    secs = time.perf_counter() - t0
+    got = float(np.sqrt(np.sum(p2.variances_array() ** 2)))
+    print(f"[select-convex] Adult <=3-way max_variance, 3000 Adam steps: card "
+          f"{out['card'][1]:.3f} s, loss/optimum {out['card'][0] / opt:.6f}; "
+          f"cpu {out['cpu'][1]:.3f} s, loss/optimum {out['cpu'][0] / opt:.6f}; "
+          f"l2 callable on the card {secs:.3f} s, loss {p2.loss_value:.9g} "
+          f"(float64 recheck {got:.9g}) | {card}")
+    if not (math.isfinite(p2.loss_value)
+            and abs(p2.loss_value - got) <= 1e-9 * got):
+        raise AssertionError("the callable's loss_value is not its float64 value")
+
+
+def sigma_bar_plan(plan, eng):
+    """The plan with every sigma^2_A replaced by the engine's rationalized
+    sigma-bar^2_A: the variances the discrete release really has."""
+    import dataclasses
+    bar = plan.sigma.copy()
+    for c, sb in eng.sigma_bars.items():
+        bar[plan.table.index[c]] = float(sb) ** 2
+    return dataclasses.replace(plan, sigma=bar)
+
+
+def secure_phase(name, card, plan, margs, k_sigma):
+    """One secure release on the card with the kernel counts reset just
+    before it and read just after; H checked bit for bit on every
+    device-tier group; seconds split into draws, H, Y-dagger, reconstruct;
+    then device ms by kernel of one more measure + reconstruct with the
+    draws replaced by zeros."""
+    import repro_torch.core.dgauss as dg
+    from repro_torch.core.discrete import h_factors
+    from repro_torch.core.kron import kron_matvec_np_batched
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    secs = {"draws": 0.0, "H": 0.0, "Y": 0.0, "reconstruct": 0.0}
+    t0 = time.perf_counter()
+    eng = plan.engine(secure=True, digits=4, device="cuda")
+    secs["engine"] = time.perf_counter() - t0
+    rows = eng.chain_plans()
+    if any(r["compute_dtype"] != "float32" for r in rows
+           if r["role"] == "measure"):
+        raise AssertionError("an H or Y-dagger chain was planned narrow")
+    raw, checked = {}, []
+    device_chain, h, y = eng._device_chain, eng._h_transform, eng._y_transform
+    sample, recon = dg.sample, eng.reconstruct
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[key] += time.perf_counter() - t
+            return out
+        return run
+
+    def stash(factors, x, dims):
+        raw["y"] = device_chain(factors, x, dims)
+        return raw["y"]
+
+    def h_checked(vs, dims):
+        before = eng.stats.device_h_groups
+        out = timed("H", h)(vs, dims)
+        if eng.stats.device_h_groups > before:
+            want = kron_matvec_np_batched(h_factors(dims, np.int64),
+                                          np.rint(vs).astype(np.int64), dims)
+            if not np.array_equal(raw["y"], want.astype(np.float64)):
+                raise AssertionError(f"device H differs from int64 H on {dims}")
+            checked.append((dims, vs.shape[0]))
+        return out
+    eng._device_chain, eng._h_transform = stash, h_checked
+    eng._y_transform = timed("Y", y)
+    eng.reconstruct = timed("reconstruct", recon)
+    dg.sample = timed("draws", sample)
+    torch.cuda.reset_peak_memory_stats()
+    reset_chain_stats()
+    t0 = time.perf_counter()
+    tables, _meas = eng.release(margs, torch.Generator("cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    secs["release"] = time.perf_counter() - t0
+    counts = chain_stats()
+    dg.sample = sample
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    worst = check_tables(sigma_bar_plan(plan, eng), tables, margs, k_sigma)
+    secs["check"] = time.perf_counter() - t0
+    st = eng.stats
+    print(f"[{name}] closure {len(plan.cliques)} cliques, workload "
+          f"{len(plan.workload.cliques)} marginals / "
+          f"{sum(plan.domain.n_cells(c) for c in plan.workload.cliques)} "
+          f"cells, {st.measure_signatures} measure + "
+          f"{st.reconstruct_signatures} reconstruct groups; tiers: "
+          f"device_h_groups {st.device_h_groups}, exact_h_groups "
+          f"{st.exact_h_groups}, host_y_groups {st.host_y_groups}; device-tier "
+          f"H equal to int64 H bit for bit in {len(checked)} groups "
+          f"{[d for d, _ in checked]}")
+    print(f"[{name}] seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                            secs.items())
+          + f"; peak device memory {peak / 2**30:.2f} GiB")
+    print(f"[{name}] worst table {worst:.3f} sigma-bar (bound {k_sigma}); "
+          f"launches {counts}")
+    if counts["narrow_launches"]:
+        raise AssertionError(f"a narrow launch in the secure release: {counts}")
+    if not checked or len(checked) != st.device_h_groups:
+        raise AssertionError("not every device-tier group was checked")
+    zeros = lambda g2, n, r: np.zeros(n, np.int64)  # noqa: E731
+    ms = kernel_ms_by_name(lambda: eng.reconstruct(eng.measure(
+        margs, torch.Generator("cuda").manual_seed(SEED),
+        _noise_override=zeros)))
+    print(f"[{name}] device ms of one more measure + reconstruct (draws "
+          f"replaced by zeros) by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items()))
+          + f" | {card}")
+    return counts, eng
+
+
+def phase_secure_adult(card, adult, plan):
+    from repro_torch.data.tabular import marginals_from_records, synthetic_records
+    margs = marginals_from_records(adult, plan.cliques,
+                                   synthetic_records(adult, ADULT_RECORDS, SEED))
+    counts, eng = secure_phase("secure-adult", card, plan, margs, 6.0)
+    if not (counts["fused_launches"] > 0 and counts["axis_launches"] > 0):
+        raise AssertionError(f"the secure Adult release skipped a kernel: "
+                             f"{counts}")
+    if not (eng.stats.device_h_groups > 0 and eng.stats.exact_h_groups > 0):
+        raise AssertionError(f"the secure Adult release missed a tier: "
+                             f"{eng.stats}")
+    return counts
+
+
+def phase_secure_synth2(card, synth):
+    from repro_torch.core import all_kway, select_sum_of_variances
+    from repro_torch.data.tabular import marginals_from_records, synthetic_records
+    plan = select_sum_of_variances(all_kway(synth, 2, include_lower=True), 1.0)
+    margs = marginals_from_records(synth, plan.cliques,
+                                   synthetic_records(synth, SYNTH2_RECORDS, SEED))
+    counts, eng = secure_phase("secure-synth2", card, plan, margs, 7.0)
+    if not (counts["fused_launches"] > 0 and eng.stats.exact_h_groups == 0):
+        raise AssertionError(f"the secure Synth release left the device tier "
+                             f"or the fused kernel: {eng.stats}, {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -864,6 +1157,7 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
     rows = phase_kernels(card)
+    phase_exact_edge(card)
     phase_small_reference()
 
     adult = adult_domain()
@@ -893,8 +1187,13 @@ def main() -> int:
         ("synth-10^%d" % SYNTH_D, engine_chains(splan)),
         ("adult", engine_chains(plan))], (plan, adult_margs))
     bf16_counts = phase_adult_bf16(card, adult, plan, adult_margs)
-    counts = (adult_counts, synth_counts) + rplus_counts + (tune_counts,
-                                                           bf16_counts)
+    fresh_tuning("secure")
+    opt = phase_select_device(card, plan.workload, splan.workload, splan)
+    phase_select_convex(card, plan.workload, opt)
+    secure_counts = (phase_secure_adult(card, adult, plan),
+                     phase_secure_synth2(card, synth))
+    counts = (adult_counts, synth_counts) + rplus_counts + (
+        tune_counts, bf16_counts) + secure_counts
     launches = {"fused_chain": sum(c["fused_launches"] - c["narrow_launches"]
                                    for c in counts),
                 "fused_chain_bf16": sum(c["bf16_launches"] for c in counts),

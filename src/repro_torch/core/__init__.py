@@ -5,7 +5,7 @@ from .residual import (axis_coeff_vectors, p_coeff, sub_gram, sub_matrix,
                        sub_pinv, variance_coeff)
 from .plantable import BasePlan, PlanTable, SigmaView, plan_table, sov_closed_form
 from .select import (Plan, select, select_convex, select_max_variance,
-                     select_sum_of_variances)
+                     select_sum_of_variances, select_utility_constrained)
 from .mechanism import (Measurement, draw_noise, exact_marginals_from_x,
                         measure, measure_np, measure_np_batched,
                         noise_offsets, pcost_of_plan, residual_answer,
@@ -16,5 +16,13 @@ from .reconstruct import (cross_marginal_covariance_dense, embed_group,
                           reconstruct_all_batched, reconstruct_marginal,
                           reconstruct_marginal_fast, subset_slot_region,
                           u_chain_factors)
+
+from .accountant import (BudgetExhausted, PrivacyBudget, approx_dp_delta,
+                         approx_dp_eps, gdp_mu, pcost_for_eps_delta,
+                         pcost_for_mu, pcost_for_rho, zcdp_rho)
+from . import dgauss
+from .discrete import (DiscreteMeasurement, clique_gamma2,
+                       discrete_pcost_of_plan, discrete_zcdp_rho,
+                       measure_discrete, naive_discrete_rho, rationalize_sigma)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

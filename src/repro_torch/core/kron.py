@@ -7,8 +7,10 @@ never materializing ``⊗_i V_i``.
   * ``kron_matvec`` / ``kron_matvec_batched`` — torch, on the tensor's device
     (the plain batched path: ``torch.tensordot`` per axis, no hand-written
     kernel; the kernels live in :mod:`repro_torch.kernels.kron_matvec`);
-  * ``kron_matvec_np`` / ``kron_expand`` — numpy float64 oracles, copied from
-    the JAX package unchanged.
+  * ``kron_matvec_np`` / ``kron_expand`` — numpy float64 oracles, and
+    ``kron_matvec_np_batched``, the dtype-preserving host chain of the secure
+    path's exact tiers (int64 and Python big-int lanes), all copied from the
+    JAX package unchanged.
 
 ``None`` factors mean "identity on that axis" and are skipped.  A factor may
 also be the string ``"ones"``: the all-ones row vector (marginalize the axis).
@@ -81,7 +83,24 @@ def kron_matvec_np(factors: Sequence[Factor], x: np.ndarray,
     return x.reshape(-1)
 
 
+def kron_matvec_np_batched(factors: Sequence[np.ndarray], x: np.ndarray,
+                           dims: Sequence[int]) -> np.ndarray:
+    """Batched host Kron chain: apply ``⊗_i factors[i]`` to every row of
+    ``x`` (B, Π dims) with numpy tensordots.
+
+    Deliberately dtype-preserving — the secure path routes int64 and object
+    (big-int) lanes through it; float callers cast their inputs first.
+    """
+    b = x.shape[0]
+    x = x.reshape((b,) + tuple(dims))
+    for axis, f in enumerate(factors):
+        x = np.moveaxis(np.tensordot(f, np.moveaxis(x, axis + 1, 0),
+                                     axes=([1], [0])), 0, axis + 1)
+    return x.reshape(b, -1)
+
+
 def kron_expand(factors: Sequence[np.ndarray]) -> np.ndarray:
     """Materialize a small Kronecker product (tests / tiny domains only)."""
     mats = [np.asarray(f, dtype=np.float64) for f in factors]
     return reduce(np.kron, mats) if mats else np.ones((1, 1))
+

@@ -498,8 +498,9 @@ class BasePlan:
                         map(float, self.variances_array())))
 
     def engine(self, use_kernel=None, precompile: bool = True, dtype=None,
-               secure: bool = False, device=None):
-        """The measurement/reconstruction engine serving this plan family."""
+               secure: bool = False, digits: int = 4, device=None):
+        """The measurement/reconstruction engine serving this plan family
+        (``secure=True``: the discrete release at ``digits`` σ̄ digits)."""
         raise NotImplementedError
 
 

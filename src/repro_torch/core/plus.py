@@ -291,7 +291,7 @@ class PlusPlan(BasePlan):
                    for c in self.workload.cliques)
 
     def engine(self, use_kernel=None, precompile: bool = True, dtype=None,
-               secure: bool = False, device=None):
+               secure: bool = False, digits: int = 4, device=None):
         if secure:
             raise ValueError("secure release (Alg 3) requires a plain "
                              "identity-basis plan; RP+ plans have no "

@@ -6,24 +6,39 @@ vectors and the workload↔closure incidence are flat arrays built once per
 workload, and every objective is segment-sums over them.
 
 * ``select_sum_of_variances`` — the closed form of Lemma 2 (no iterations);
-* ``select_max_variance``    — exact max-variance via the concave dual, the
-  exponentiated-gradient host loop (``backend="numpy"``), certified by the
-  fp64 primal–dual gap.
+* ``select_max_variance``    — exact max-variance via the concave dual: the
+  exponentiated-gradient ascent runs as ``np.bincount`` segment-sums on the
+  host (``backend="numpy"``) or as a torch loop of two ``index_add_``
+  contractions per step on the device (``backend="device"``, chunked, with
+  float64 host checkpoints certifying the primal–dual gap);
+* ``select_convex``          — any *regular*, positively 1-homogeneous loss of
+  the per-marginal variances, user callables included: Adam on the
+  scale-invariant product ``pcost(σ²)·L(Var(σ²))`` in log-space with torch
+  autograd, then a rescale so the privacy constraint is tight;
+* ``select_utility_constrained`` — the paper's Eq. 2, by rescaling Eq. 1.
+
+The legacy dict/itertools coefficient path survives as ``_coefficients`` /
+``legacy_*_sigmas``: the float64 oracles the tests compare the IR against.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports them: the device max-variance loop (``backend="device"``),
-``select_convex``, and divide-and-conquer planning (``strategy="dnc"``).
+that ports it: divide-and-conquer planning (``strategy="dnc"``).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
-from .domain import Clique, MarginalWorkload
+from repro_torch.kernels.kron_matvec._layout import resolve_device
+
+from .domain import Clique, MarginalWorkload, closure, subsets
 from .plantable import BasePlan, PlanTable, plan_table, sov_closed_form
+from .residual import p_coeff, variance_coeff
+
+LossSpec = Union[str, Callable]
 
 
 @dataclass(eq=False)
@@ -66,13 +81,98 @@ class Plan(BasePlan):
         return self.table.cross_covariances(self.sigma, pairs)
 
     def engine(self, use_kernel=None, precompile: bool = True, dtype=None,
-               secure: bool = False, device=None):
+               secure: bool = False, digits: int = 4, device=None):
         if secure:
-            raise NotImplementedError("the secure discrete release is not "
-                                      "ported yet (ROADMAP queue 1, item 8)")
+            from repro_torch.engine.discrete_engine import DiscreteEngine
+            return DiscreteEngine(self, use_kernel=use_kernel,
+                                  precompile=precompile, dtype=dtype,
+                                  digits=digits, device=device)
         from repro_torch.engine.engine import MarginalEngine
         return MarginalEngine(self, use_kernel=use_kernel,
                               precompile=precompile, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Legacy dict/itertools coefficient path (float64 oracles the tests compare
+# the IR against)
+# ---------------------------------------------------------------------------
+
+def _coefficients(workload: MarginalWorkload,
+                  weights: Optional[Mapping[Clique, float]] = None
+                  ) -> Tuple[List[Clique], np.ndarray, np.ndarray]:
+    """Closure cliques, pcost coefficients p_A, and SoV coefficients v_A (§6.1)."""
+    dom = workload.domain
+    cl = closure(workload.cliques)
+    index = {c: i for i, c in enumerate(cl)}
+    p = np.array([p_coeff(dom, c) for c in cl])
+    v = np.zeros(len(cl))
+    for wc in workload.cliques:
+        imp = float(weights.get(wc, 1.0)) if weights is not None else workload.weight(wc)
+        for sub in subsets(wc):
+            v[index[sub]] += imp * variance_coeff(dom, sub, wc)
+    return cl, p, v
+
+
+def _variance_matrix(workload: MarginalWorkload, cl: List[Clique]
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """COO (rows → workload idx, cols → closure idx, coef) for Var_A(σ²) (Thm 4)."""
+    dom = workload.domain
+    index = {c: i for i, c in enumerate(cl)}
+    rows, cols, vals = [], [], []
+    for wi, wc in enumerate(workload.cliques):
+        for sub in subsets(wc):
+            rows.append(wi)
+            cols.append(index[sub])
+            vals.append(variance_coeff(dom, sub, wc))
+    return np.array(rows, np.int32), np.array(cols, np.int32), np.array(vals)
+
+
+def legacy_sov_sigmas(workload: MarginalWorkload, pcost_budget: float = 1.0,
+                      weights: Optional[Mapping[Clique, float]] = None
+                      ) -> Dict[Clique, float]:
+    """Lemma-2 closed form over the dict/itertools coefficients (oracle)."""
+    cl, p, v = _coefficients(workload, weights)
+    sig = sov_closed_form(p, v, pcost_budget)
+    return dict(zip(cl, map(float, sig)))
+
+
+def legacy_maxvar_sigmas(workload: MarginalWorkload, pcost_budget: float = 1.0,
+                         weights: Optional[Mapping[Clique, float]] = None,
+                         iters: int = 4000, tol: float = 1e-9
+                         ) -> Tuple[Dict[Clique, float], float]:
+    """Historical host-loop dual ascent (``np.add.at`` per iteration)."""
+    dom = workload.domain
+    cl = closure(workload.cliques)
+    p = np.array([p_coeff(dom, c) for c in cl])
+    m = len(workload.cliques)
+    cw = np.array([float((weights or {}).get(c, workload.weight(c)))
+                   for c in workload.cliques])
+    rows, cols, vals = _variance_matrix(workload, cl)
+    c = float(pcost_budget)
+    mu = np.full(m, 1.0 / m)
+    best = None
+    for t in range(iters):
+        v = np.zeros(len(cl))
+        np.add.at(v, cols, vals * (mu / cw)[rows])
+        sq = np.sqrt(np.maximum(v, 0.0) * p)
+        T = sq.sum() ** 2 / c
+        with np.errstate(divide="ignore"):
+            u = np.sqrt(T * p / (c * np.maximum(v, 1e-300)))
+        var = np.zeros(m)
+        np.add.at(var, rows, vals * u[cols])
+        var = var / cw
+        primal = float(var.max())
+        gap = primal - T
+        if best is None or primal < best[0]:
+            best = (primal, u.copy())
+        if gap <= tol * max(primal, 1e-300):
+            break
+        eta = 2.0 * math.log(max(m, 2)) / (primal * math.sqrt(t + 1.0))
+        mu = mu * np.exp(eta * (var - primal))
+        mu = np.maximum(mu, 1e-300)
+        mu /= mu.sum()
+    primal, u = best
+    return dict(zip(cl, map(float, u))), primal
 
 
 #: strategy="auto" would switch to divide-and-conquer past this estimated
@@ -114,6 +214,18 @@ def select_sum_of_variances(workload: MarginalWorkload, pcost_budget: float = 1.
                 pcost=table.pcost(sig), loss_value=float(np.dot(v, sig)))
 
 
+def _maxvar_eval_fp64(mu, p, rows, cols, vals, cw, c, n, m):
+    """Closed-form (primal value, primal σ², dual value) at dual point μ."""
+    mu = mu / mu.sum()
+    v = np.bincount(cols, weights=vals * (mu / cw)[rows], minlength=n)
+    sq = np.sqrt(np.maximum(v, 0.0) * p)
+    T = sq.sum() ** 2 / c
+    with np.errstate(divide="ignore"):
+        u = np.sqrt(T * p / (c * np.maximum(v, 1e-300)))
+    var = np.bincount(rows, weights=vals * u[cols], minlength=m) / cw
+    return float(var.max()), u, float(T)
+
+
 def _normalize_mu0(mu0, m) -> np.ndarray:
     """Validate/normalize a warm-start dual point onto the simplex."""
     mu = np.asarray(mu0, np.float64).reshape(-1)
@@ -153,59 +265,256 @@ def _maxvar_numpy(p, rows, cols, vals, cw, c, iters, tol, n, m, mu0=None):
     return best_u, best_primal, best_mu
 
 
+def _maxvar_run_chunk(mu, bp, bmu, t0: int, p, rows, cols, vals, icw,
+                      cc: float, tiny: float, logm: float, n: int, m: int,
+                      chunk: int):
+    """``chunk`` exp-gradient iterations on the device: each one two
+    ``index_add_`` contractions over the incidence (the JAX package's
+    ``lax.scan`` over ``segment_sum``).  Nothing here reads a value back to
+    the host, so the iterations queue on the device without a sync."""
+    for t in range(t0, t0 + chunk):
+        v = torch.zeros(n, dtype=mu.dtype, device=mu.device).index_add_(
+            0, cols, vals * (mu * icw)[rows])
+        sq = torch.sqrt(torch.clamp_min(v, 0.0) * p)
+        T = sq.sum() ** 2 / cc
+        u = torch.sqrt(T * p / (cc * torch.clamp_min(v, tiny)))
+        var = torch.zeros(m, dtype=mu.dtype, device=mu.device).index_add_(
+            0, rows, vals * u[cols]) * icw
+        primal = var.max()
+        better = primal < bp
+        bp = torch.where(better, primal, bp)
+        bmu = torch.where(better, mu, bmu)
+        eta = logm / (primal * math.sqrt(t + 1.0))
+        mu = torch.clamp_min(mu * torch.exp(eta * (var - primal)), tiny)
+        mu = mu / mu.sum()
+    return mu, bp, bmu
+
+
+def _maxvar_device(table, cw, c, iters, tol, chunk, mu0=None, device=None):
+    """Chunked device dual ascent (:func:`_maxvar_run_chunk`) with float64
+    host checkpoints at chunk boundaries: they track the best primal and
+    certify the primal–dual gap.
+
+    ``mu0`` warm-starts the dual point; a warm start also shrinks the first
+    chunk so the gap certificate is consulted early.  Scatter-adds on CUDA
+    sum in no fixed order, so a device plan is certified by its float64 gap,
+    not held bit-identical to a CPU run."""
+    n, m = table.n, table.m
+    p, rows, cols, vals = table.p, table.inc_rows, table.inc_cols, table.inc_vals
+    p_d, rows_d, cols_d, vals_d = table.device_arrays(device)
+    dev, dt = p_d.device, p_d.dtype
+    icw = torch.as_tensor(1.0 / cw, dtype=dt, device=dev)
+    tiny = float(torch.finfo(dt).tiny)
+    logm = 2.0 * math.log(max(m, 2))
+    cc = float(c)
+
+    mu_h = np.full(m, 1.0 / m) if mu0 is None else _normalize_mu0(mu0, m)
+    mu_d = torch.as_tensor(mu_h, dtype=dt, device=dev)
+    bp_d = torch.tensor(math.inf, dtype=dt, device=dev)
+    bmu_d = mu_d
+    best_primal, best_u, best_mu, dual_best = math.inf, None, mu_h, -math.inf
+    t0 = 0
+    first_chunk = min(chunk, 25) if mu0 is not None else chunk
+    while t0 < iters:
+        # Exact iteration count: the tail chunk shrinks instead of overrunning.
+        k = min(first_chunk if t0 == 0 else chunk, iters - t0)
+        mu_d, bp_d, bmu_d = _maxvar_run_chunk(
+            mu_d, bp_d, bmu_d, t0, p_d, rows_d, cols_d, vals_d, icw, cc, tiny,
+            logm, n, m, k)
+        t0 += k
+        for cand in (mu_d.cpu().numpy(), bmu_d.cpu().numpy()):
+            primal, u, T = _maxvar_eval_fp64(cand, p, rows, cols, vals,
+                                             cw, cc, n, m)
+            dual_best = max(dual_best, T)
+            if primal < best_primal:
+                best_primal, best_u, best_mu = primal, u, cand
+        if best_primal - dual_best <= tol * max(best_primal, 1e-300):
+            break
+    return best_u, best_primal, best_mu
+
+
+#: backend="auto" runs the device loop from this many incidence entries up.
+AUTO_DEVICE_NNZ = 20_000
+
+
 def select_max_variance(workload: MarginalWorkload, pcost_budget: float = 1.0,
                         weights: Optional[Mapping[Clique, float]] = None,
                         iters: int = 4000, tol: float = 1e-9,
                         table: Optional[PlanTable] = None,
-                        backend: str = "auto",
+                        backend: str = "auto", chunk: int = 250,
                         mu0: Optional[np.ndarray] = None,
                         strategy: str = "monolithic",
-                        blocks=None, max_block=None) -> BasePlan:
+                        blocks=None, max_block=None, device=None) -> BasePlan:
     """Exact max-variance selection via the concave dual.
 
     min_σ max_A Var_A/c_A  s.t. pcost ≤ c  has Lagrangian dual
         max_{μ ∈ Δ} g(μ),   g(μ) = (Σ_{A'} sqrt(p_{A'} v_{A'}(μ)))² / c
     where v(μ) are the Lemma-2 SoV coefficients under workload weights μ/c_A.
-    Exponentiated-gradient ascent on μ runs as ``np.bincount`` segment-sums
-    over the IR incidence, and optimality is certified by the primal–dual gap.
-    ``backend="auto"`` resolves to ``"numpy"``, the one backend ported.
+    Exponentiated-gradient ascent on μ runs as segment-sums over the IR
+    incidence, and optimality is certified by the float64 primal–dual gap.
+
+    ``backend="numpy"`` is the ``np.bincount`` host loop; ``"device"`` the
+    chunked torch loop on ``device`` (CUDA unless ``device="cpu"``; it
+    raises without CUDA otherwise); ``"auto"`` takes the device loop from
+    :data:`AUTO_DEVICE_NNZ` incidence entries up and the host loop below.
+    ``mu0`` warm-starts the dual ascent from ``plan.mu`` of an earlier plan.
     """
     _check_strategy(strategy, workload, blocks, max_block)
-    if backend == "device":
-        raise NotImplementedError("the device max-variance loop is not ported "
-                                  "yet (ROADMAP queue 1, item 2)")
-    if backend not in ("auto", "numpy"):
-        raise ValueError(backend)
     table = plan_table(workload) if table is None else table
     cw = table.weight_vector(weights, default_to_workload=True)
-    u, primal, mu = _maxvar_numpy(table.p, table.inc_rows, table.inc_cols,
-                                  table.inc_vals, cw, float(pcost_budget),
-                                  iters, tol, table.n, table.m, mu0)
+    c = float(pcost_budget)
+    if backend == "auto":
+        backend = ("device" if table.inc_vals.size >= AUTO_DEVICE_NNZ
+                   else "numpy")
+    if backend == "device":
+        u, primal, mu = _maxvar_device(table, cw, c, iters, tol, chunk, mu0,
+                                       resolve_device(device))
+    elif backend == "numpy":
+        u, primal, mu = _maxvar_numpy(table.p, table.inc_rows, table.inc_cols,
+                                      table.inc_vals, cw, c, iters, tol,
+                                      table.n, table.m, mu0)
+    else:
+        raise ValueError(backend)
     return Plan(table, u, "max_variance",
                 pcost=table.pcost(u), loss_value=primal, mu=mu)
 
 
-def select_convex(workload: MarginalWorkload, *args, **kw) -> BasePlan:
-    """Generic 1-homogeneous convex losses: not ported yet."""
-    raise NotImplementedError("select_convex is not ported yet "
-                              "(ROADMAP queue 1, item 2)")
+# ---------------------------------------------------------------------------
+# Generic 1-homogeneous convex losses (built-in or user-supplied callables)
+# ---------------------------------------------------------------------------
+
+def select_convex(workload: MarginalWorkload, pcost_budget: float = 1.0,
+                  loss: LossSpec = "max_variance",
+                  weights: Optional[Mapping[Clique, float]] = None,
+                  steps: int = 3000, lr: float = 0.05, seed: int = 0,
+                  table: Optional[PlanTable] = None,
+                  strategy: str = "monolithic",
+                  blocks=None, max_block=None, device=None) -> BasePlan:
+    """Solve privacy-constrained selection for a regular 1-homogeneous loss.
+
+    ``loss`` is ``'max_variance'`` (max_A Var_A / c_A, smoothed by an
+    annealed logsumexp during the solve), ``'sum_of_variances'`` (sanity
+    path), or any positively 1-homogeneous, torch-differentiable callable
+    ``L(var)`` of the weight-normalized per-marginal variance vector
+    ``var = Var(σ²)/c`` (a float64 tensor of shape (m,), strictly positive)
+    returning a scalar tensor.  Adam runs on ``device`` (CUDA unless
+    ``device="cpu"``) with torch autograd.  The final ``loss_value`` is
+    computed before the plan is constructed, in float64: for a callable, by
+    calling it on a float64 CPU tensor and taking ``float()`` (the JAX
+    package calls it on a numpy array).  ``seed`` is accepted for signature
+    parity; the solve draws no randomness.
+    """
+    _check_strategy(strategy, workload, blocks, max_block)
+    table = plan_table(workload) if table is None else table
+    v_lin = table.sov_coeffs(weights)       # historical default-1.0 weighting
+    w = table.weight_vector(weights, default_to_workload=True)
+    m = table.m
+    if not callable(loss) and loss not in ("max_variance", "sum_of_variances"):
+        raise ValueError(loss)
+
+    p_d, rows_d, cols_d, vals_d = table.device_arrays(resolve_device(device))
+    dt, dev = p_d.dtype, p_d.device
+    w_d = torch.as_tensor(w, dtype=dt, device=dev)
+    v_lin_d = torch.as_tensor(v_lin, dtype=dt, device=dev)
+
+    def loss_fn(theta, tau):
+        u = torch.exp(theta)
+        var = torch.zeros(m, dtype=dt, device=dev).index_add(
+            0, rows_d, vals_d * u[cols_d]) / w_d
+        if callable(loss):
+            L = loss(var)
+        elif loss == "max_variance":
+            L = tau * torch.logsumexp(var / tau, dim=0)
+        else:
+            L = torch.dot(v_lin_d, u)
+        P = torch.sum(p_d / u)
+        return torch.log(P) + torch.log(L)  # scale-invariant product objective
+
+    # Init from the SoV closed form (good warm start).
+    warm = select_sum_of_variances(workload, pcost_budget, weights, table=table)
+    theta = torch.log(torch.as_tensor(np.maximum(warm.sigma, 1e-12), dtype=dt,
+                                      device=dev))
+    tau_scale = float(np.mean(table.variances(warm.sigma) / w))
+    mom = torch.zeros_like(theta)
+    vel = torch.zeros_like(theta)
+    for i in range(steps):
+        tau = 10.0 ** (-3.0 * i / steps) * tau_scale
+        th = theta.detach().requires_grad_(True)
+        g, = torch.autograd.grad(loss_fn(th, tau), th)
+        mom = 0.9 * mom + 0.1 * g
+        vel = 0.999 * vel + 0.001 * g * g
+        mh = mom / (1 - 0.9 ** (i + 1.0))
+        vh = vel / (1 - 0.999 ** (i + 1.0))
+        theta = theta.detach() - lr * mh / (torch.sqrt(vh) + 1e-9)
+
+    u = np.exp(theta.cpu().numpy().astype(np.float64))
+    # Rescale so pcost is exactly the budget (tight at the optimum).
+    u = u * (table.pcost(u) / float(pcost_budget))
+    # float64 loss at the solution — set at construction, never patched after.
+    var64 = table.variances(u) / w
+    if callable(loss):
+        loss_value = float(loss(torch.as_tensor(var64, dtype=torch.float64)))
+        objective = getattr(loss, "__name__", "convex")
+    elif loss == "max_variance":
+        loss_value = float(var64.max())
+        objective = loss
+    else:
+        loss_value = float(np.dot(v_lin, u))
+        objective = loss
+    return Plan(table, u, objective, pcost=table.pcost(u),
+                loss_value=loss_value)
 
 
 def select(workload: MarginalWorkload, pcost_budget: float = 1.0,
-           objective: str = "sum_of_variances",
+           objective: Union[str, Callable] = "sum_of_variances",
            weights: Optional[Mapping[Clique, float]] = None,
-           strategy: str = "auto", **kw) -> BasePlan:
-    """Dispatch on objective: ``sum_of_variances`` | ``max_variance``.
+           loss: Optional[LossSpec] = None, strategy: str = "auto",
+           **kw) -> BasePlan:
+    """Dispatch on objective: sov | maxvar | convex (user losses welcome).
 
-    ``objective="convex"`` or a callable objective raises until
-    ``select_convex`` is ported.
+    ``objective='convex'`` routes to :func:`select_convex`; pass the loss via
+    ``loss=`` (a name or a positively 1-homogeneous torch-differentiable
+    callable).  A callable ``objective`` is shorthand for the same thing.
+    ``strategy="auto"`` stays monolithic; the divide-and-conquer route it
+    takes past :data:`AUTO_DNC_NNZ` incidence entries is not ported.
     """
-    if callable(objective) or objective == "convex":
-        return select_convex(workload)
+    if callable(objective):
+        return select_convex(workload, pcost_budget, loss=objective,
+                             weights=weights, strategy=strategy, **kw)
     if objective in ("sum_of_variances", "sov", "rmse"):
         return select_sum_of_variances(workload, pcost_budget, weights,
                                        strategy=strategy, **kw)
     if objective in ("max_variance", "maxvar"):
         return select_max_variance(workload, pcost_budget, weights,
                                    strategy=strategy, **kw)
+    if objective == "convex":
+        return select_convex(workload, pcost_budget,
+                             loss="max_variance" if loss is None else loss,
+                             weights=weights, strategy=strategy, **kw)
     raise ValueError(objective)
+
+
+def select_utility_constrained(workload: MarginalWorkload, loss_budget: float,
+                               objective: str = "sum_of_variances",
+                               weights: Optional[Mapping[Clique, float]] = None,
+                               **kw) -> Plan:
+    """Equation 2 of the paper: minimize pcost subject to loss ≤ γ.
+
+    Both paper objectives are positively 1-homogeneous in the σ², and pcost is
+    (−1)-homogeneous, so the Eq.-1 solution at any budget rescales exactly onto
+    the Eq.-2 constraint:  if Plan(c=1) attains loss L₁, then scaling every
+    σ²_A by L₁/γ attains loss γ at pcost L₁/γ — and this is optimal, since a
+    cheaper mechanism meeting the loss bound would rescale back to beat the
+    Eq.-1 optimum.
+    """
+    base = select(workload, pcost_budget=1.0, objective=objective,
+                  weights=weights, **kw)
+    if objective in ("sum_of_variances", "sov", "rmse"):
+        w = base.table.weight_vector(weights, default_to_workload=True)
+        l1 = float(np.dot(w, base.variances_array()))
+    else:
+        l1 = base.max_variance(weights)
+    scale = float(loss_budget) / l1          # loss is 1-homogeneous in σ²
+    return Plan(base.table, base.sigma * scale,
+                base.objective + "_utility_constrained",
+                pcost=base.pcost / scale, loss_value=float(loss_budget))

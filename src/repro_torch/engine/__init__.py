@@ -1,1 +1,2 @@
 from .engine import ChainRegistry, EngineStats, MarginalEngine, ReleaseServing
+from .discrete_engine import DiscreteEngine

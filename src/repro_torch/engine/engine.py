@@ -40,12 +40,16 @@ class EngineStats:
     * fused_chains / fallback_chains — chain planning outcome
     * tuned_chains — chains registered under a tuned launch config
     * compile_warmups — warmup launches at construction
+    * device_h_groups / exact_h_groups / host_y_groups — DiscreteEngine
+      exactness tiers (H on the device chain / on the exact host tiers; Y†
+      on the float64 host fallback)
     """
 
     _FIELDS = ("measure_calls", "reconstruct_calls",
                "measure_signatures", "reconstruct_signatures",
                "fused_chains", "fallback_chains", "tuned_chains",
-               "compile_warmups")
+               "compile_warmups", "device_h_groups", "exact_h_groups",
+               "host_y_groups")
 
     __slots__ = _FIELDS
 
@@ -67,7 +71,7 @@ class EngineStats:
 
 
 class ChainRegistry:
-    """Chain-plan bookkeeping: one plan per (dims, signature) chain.
+    """Chain-plan bookkeeping: one plan per (dims, signature, role) chain.
 
     Subclasses provide ``self.stats`` (EngineStats) and ``self.device``;
     ``self._chain_plans`` maps each chain to a ``(ChainPlan, factors,
@@ -103,7 +107,7 @@ class ChainRegistry:
             cfg = resolve_config(factors, dims, batch, epilogue, self.device)
         cp, fused = config_launch(factor_shapes(factors, dims), dims, batch,
                                   epilogue, cfg, role == "reconstruct")
-        key = (tuple(dims), cp.signature)
+        key = (tuple(dims), cp.signature, role)
         if key not in self._chain_plans:
             if not hasattr(self, "_chain_tune"):
                 self._chain_tune, self._chain_roles = {}, {}

@@ -458,3 +458,118 @@ def test_axis_kernel_ragged_tiles_match_plain(cuda, L, n, R, m):
                                    smem_budget=232448)
         assert chain_stats()["fused_launches"] == 1
         assert torch.equal(fused.reshape(L, m, R), got)
+
+
+# ------------------------------------------------ secure release and planner
+
+def _int64_h(vs, dims):
+    from repro_torch.core.discrete import h_factors
+    from repro_torch.core.kron import kron_matvec_np_batched
+    return kron_matvec_np_batched(h_factors(dims, np.int64),
+                                  np.rint(vs).astype(np.int64), dims)
+
+
+@pytest.mark.parametrize("dims,rows,one_cell", [
+    ((10, 10), 1, True), ((10, 10), 37, False), ((9, 7, 5), 300, False),
+    ((2, 6), 5, False), ((100,), 3, False)])
+@pytest.mark.parametrize("route", ["fused", "axis"])
+def test_device_h_equals_int64_h_through_both_kernels(cuda, dims, rows,
+                                                      one_cell, route):
+    """Inputs at the float32 bound (‖v‖₁·Π2n·max n just below 2^24): the
+    kernel's float32 H equals the int64 H exactly, before any rint, on the
+    fused kernel (the full 227 KB budget, untuned) and on the per-axis
+    route (a 16-byte budget forces it)."""
+    from repro_torch.core.discrete import h_factors
+    n_in = math.prod(dims)
+    l1 = (2 ** 24 - 1) // (math.prod(2 * n for n in dims) * max(dims))
+    rng = np.random.default_rng(rows)
+    if one_cell:
+        vs = np.zeros((rows, n_in))
+        vs[:, n_in // 3] = l1
+    else:
+        vs = np.stack([rng.multinomial(l1, np.full(n_in, 1.0 / n_in))
+                       for _ in range(rows)]).astype(np.float64)
+    x = torch.as_tensor(vs, dtype=torch.float32, device=cuda)
+    reset_chain_stats()
+    got = fused_chain_matvec(h_factors(dims), x, dims,
+                             smem_budget=16 if route == "axis" else 232448)
+    st = chain_stats()
+    assert (st["fused_launches"], st["axis_launches"] > 0) == \
+        ((1, False) if route == "fused" else (0, True))
+    assert np.array_equal(got.cpu().numpy().astype(np.float64),
+                          _int64_h(vs, dims).astype(np.float64))
+
+
+def test_secure_release_on_card_device_tier_exact(cuda):
+    """DiscreteEngine on the card: every device-tier group's H equals the
+    int64 H, both kernels run, and the tables land within 6σ (σ² from the
+    plan with each σ²_A replaced by the engine's σ̄²_A)."""
+    from repro_torch.engine import DiscreteEngine
+    dom = Domain.create([40, 40, 40, 5, 3])
+    plan = select_sum_of_variances(all_kway(dom, 3, include_lower=True), 1.0)
+    x = np.random.default_rng(5).integers(0, 2, dom.universe_size())
+    x[:x.size // 4] = 0
+    margs = exact_marginals_from_x(dom, plan.cliques, x)
+    eng = DiscreteEngine(plan, device=cuda)
+    seen = []
+    h = eng._h_transform
+
+    def checked(vs, dims):
+        before = eng.stats.device_h_groups
+        out = h(vs, dims)
+        if eng.stats.device_h_groups > before:
+            assert np.array_equal(out, _int64_h(vs, dims)), dims
+            seen.append(dims)
+        return out
+    eng._h_transform = checked
+    reset_chain_stats()
+    tables, _ = eng.release(margs, torch.Generator(cuda).manual_seed(6))
+    st = chain_stats()
+    assert st["fused_launches"] > 0 and st["axis_launches"] > 0
+    assert seen and eng.stats.exact_h_groups > 0
+    bar = plan.sigma.copy()
+    for c, sb in eng.sigma_bars.items():
+        bar[plan.table.index[c]] = float(sb) ** 2
+    for c, var in zip(plan.workload.cliques, plan.table.variances(bar)):
+        assert np.abs(tables[c] - margs[c]).max() <= 6 * math.sqrt(var), c
+
+
+def test_secure_measure_chains_stay_float32_when_bf16_is_offered(
+        cuda, tmp_path, monkeypatch):
+    from repro_torch.engine import DiscreteEngine
+    from repro_torch.kernels.autotune import reset_registry
+    monkeypatch.setenv("REPRO_KERNEL_COMPUTE_DTYPES", "bfloat16")
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path))
+    reset_registry()
+    dom = Domain.create([10, 10, 10, 10])
+    plan = select_sum_of_variances(all_kway(dom, 3, include_lower=True), 1.0)
+    x = np.random.default_rng(2).integers(0, 2, dom.universe_size())
+    margs = exact_marginals_from_x(dom, plan.cliques, x)
+    eng = DiscreteEngine(plan, device=cuda)
+    assert all(r["compute_dtype"] == "float32" for r in eng.chain_plans()
+               if r["role"] == "measure")
+    reset_chain_stats()
+    meas = eng.measure(margs, torch.Generator(cuda).manual_seed(1))
+    st = chain_stats()
+    assert st["fused_launches"] > 0 and st["narrow_launches"] == 0
+    eng.reconstruct(meas)
+    reset_registry()
+
+
+def test_device_maxvar_on_card_within_the_gap(cuda):
+    from repro_torch.core.select import _maxvar_eval_fp64, select_max_variance
+    dom = Domain.create([5, 3, 4, 2, 6])
+    wk = all_kway(dom, 3, include_lower=True)
+    a = select_max_variance(wk, 1.0, iters=1500, backend="numpy")
+    b = select_max_variance(wk, 1.0, iters=1500, backend="device", chunk=250,
+                            device=cuda)
+    t = b.table
+    cw = t.weight_vector(None, default_to_workload=True)
+    gaps = []
+    for p in (a, b):
+        primal, _u, dual = _maxvar_eval_fp64(p.mu, t.p, t.inc_rows,
+                                             t.inc_cols, t.inc_vals, cw, 1.0,
+                                             t.n, t.m)
+        gaps.append(primal - dual)
+    assert abs(a.loss_value - b.loss_value) <= sum(gaps) + 1e-12 * a.loss_value
+    assert b.pcost == pytest.approx(1.0, rel=1e-9)

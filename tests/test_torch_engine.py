@@ -93,7 +93,9 @@ def test_port_imports_neither_jax_nor_repro():
             " repro_torch.convert, repro_torch.data, repro_torch.core.plus,"
             " repro_torch.engine.plus_engine, repro_torch.baselines,"
             " repro_torch.configs, repro_torch.configs.synth_ranges,"
-            " repro_torch.kernels.autotune, repro_torch.roofline;"
+            " repro_torch.kernels.autotune, repro_torch.roofline,"
+            " repro_torch.core.accountant, repro_torch.core.dgauss,"
+            " repro_torch.core.discrete, repro_torch.engine.discrete_engine;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
