@@ -62,8 +62,30 @@ Phases, in order; any failure exits non-zero:
    the marginals of 4,000 seeded records: every group's H on the device
    tier (the 2-way bound is 4,000 * 400 * 10 < 2^24), 7 sigma per table,
    the same bit-for-bit H check.
-13. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
-   the per-axis kernel) and, last, {"ok": true, "device": {...}}.
+13. [release-adult] the Adult <=3-way release with postprocess=
+   "consistent" twice from one seed (bit-identical; 6 sigma; equal to the
+   raw family within 5e-5 of max|raw|), the card's float32 CG against the
+   host fp64 CG (5e-5 of max|r|), device ms of one CG solve by kernel,
+   then "nonneg" (cells >= 0, every table's sum equal to the fitted total
+   within 2 ulp, the card's projection twice bit-identical) and
+   synthesize(48,842) (shape, dtype, ranges, synth_report).  Seconds by
+   stage: measure, reconstruct, operator build, rhs (host), device set-up,
+   CG (device; iterations, relative residual), marginals (host),
+   projection, synthesis.
+14. [release-adult-tree] the chain (0,1),...,(12,13) on Adult's domain:
+   nonneg, synthesize(1,000,000); max_tv < 0.05 against the released
+   tables, chi-square at z = 6 against the sampler's chain joint (the
+   chi-square against the released tables is printed, see the phase).
+15. [release-synth] Synth-10^100 <=3-way, "consistent" twice (bit-identical,
+   7 sigma, equal to raw), device ms of one CG solve, peak device memory.
+16. [release-secure] the [secure-synth2] engine with "nonneg": every table
+   keeps the measured integer total.
+17. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+   the per-axis kernel; launches over every phase above) and, last,
+   {"ok": true, "device": {...}}.
+
+[select-device] and [select-convex] also run each route twice more, on the
+card and on the CPU, and require sigma and the loss bit-identical.
 
 Phase 2 also pushes the exactness edge of the secure path's H chain through
 both kernels: an H chain on (10, 10) whose one nonzero cell holds
@@ -923,6 +945,16 @@ def maxvar_gap(plan):
     return primal, dual, (primal - dual) / primal
 
 
+def repeat_check(name, label, plans):
+    """Every plan's sigma and loss equal to the first's, bit for bit."""
+    same = all(np.array_equal(p.sigma, plans[0].sigma)
+               and p.loss_value == plans[0].loss_value for p in plans)
+    print(f"[{name}] {label}: {len(plans)} calls, sigma and loss "
+          f"bit-identical {same} (loss {plans[0].loss_value!r})")
+    if not same:
+        raise AssertionError(f"{label}: two calls gave different plans")
+
+
 def phase_select_device(card, adult_wk, synth_wk, synth_sov):
     """[select-device]: the device max-variance loop on the card.  Returns
     Adult's max-variance optimum (the numpy loop's loss)."""
@@ -955,6 +987,10 @@ def phase_select_device(card, adult_wk, synth_wk, synth_sov):
             (g_host + g_dev) * host.loss_value + 1e-12 * host.loss_value:
         raise AssertionError("device and numpy max-variance disagree beyond "
                              "their gaps")
+    for where in ("cuda", "cpu"):
+        again = [sel.select_max_variance(adult_wk, 1.0, backend="device",
+                                         device=where) for _ in range(2)]
+        repeat_check("select-device", f"Adult device loop on {where}", again)
     iters[0] = 0
     t0 = time.perf_counter()
     sdev = sel.select_max_variance(synth_wk, 1.0, backend="device",
@@ -988,6 +1024,9 @@ def phase_select_convex(card, adult_wk, opt):
             raise AssertionError(f"select_convex on {dev} below the optimum "
                                  f"or off budget: {plan.loss_value}, "
                                  f"{plan.pcost}")
+        repeat_check("select-convex", f"max_variance on {dev}", [plan] + [
+            select_convex(adult_wk, 1.0, loss="max_variance", device=dev)
+            for _ in range(2)])
 
     def l2_of_variances(var):
         return torch.sqrt(torch.sum(var * var))
@@ -995,6 +1034,9 @@ def phase_select_convex(card, adult_wk, opt):
     p2 = select(adult_wk, 1.0, objective="convex", loss=l2_of_variances,
                 device="cuda")
     secs = time.perf_counter() - t0
+    repeat_check("select-convex", "l2 callable on cuda", [p2] + [
+        select(adult_wk, 1.0, objective="convex", loss=l2_of_variances,
+               device="cuda") for _ in range(2)])
     got = float(np.sqrt(np.sum(p2.variances_array() ** 2)))
     print(f"[select-convex] Adult <=3-way max_variance, 3000 Adam steps: card "
           f"{out['card'][1]:.3f} s, loss/optimum {out['card'][0] / opt:.6f}; "
@@ -1132,6 +1174,322 @@ def phase_secure_synth2(card, synth):
     if not (counts["fused_launches"] > 0 and eng.stats.exact_h_groups == 0):
         raise AssertionError(f"the secure Synth release left the device tier "
                              f"or the fused kernel: {eng.stats}, {counts}")
+    return counts, eng, margs
+
+
+CG_ATOL = 5e-5          # of max|raw|: the JAX package's device-vs-host bound
+CG_PROFILE_ITERS = 10   # at most this many CG iterations under the profiler
+TREE_RECORDS = 1_000_000
+
+
+class ReleaseStages:
+    """Stage clock of the release subsystem while active: the operator's
+    host build, rhs (host fp64), the device set-up (index H2D, segment
+    map), the CG on the card, marginals (host fp64) and the projection,
+    each timed after a ``torch.cuda.synchronize()``; ``solves`` keeps every
+    ConsistentRelease (iterations, relative residual, total).  The
+    functions are wrapped where the package looks them up and restored on
+    exit."""
+
+    def __init__(self):
+        self.secs = dict(operator=0.0, rhs=0.0, setup=0.0, cg=0.0,
+                         marginals=0.0, projection=0.0)
+        self.solves = []
+        self._solve = 0.0
+
+    def _timed(self, key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            if key == "solve":
+                self._solve += dt
+                self.solves.append(out)
+            else:
+                self.secs[key] += dt
+            return out
+        return run
+
+    def __enter__(self):
+        import repro_torch.release as rel
+        import repro_torch.release.consistency as cons
+        import repro_torch.release.nonneg as nonneg
+        op = cons.ConsistencyOperator
+        self._saved = [(op, "__init__", "operator"), (op, "rhs_np", "rhs"),
+                       (op, "device_fns", "setup"),
+                       (op, "marginals_np", "marginals"),
+                       (nonneg, "project_nonneg", "projection"),
+                       (rel, "solve_consistency", "solve"),
+                       (nonneg, "solve_consistency", "solve")]
+        self._saved = [(obj, name, getattr(obj, name), key)
+                       for obj, name, key in self._saved]
+        for obj, name, fn, key in self._saved:
+            setattr(obj, name, self._timed(key, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn, _key in self._saved:
+            setattr(obj, name, fn)
+        self.secs["cg"] = self._solve - (self.secs["operator"]
+                                         + self.secs["rhs"]
+                                         + self.secs["setup"])
+
+    def line(self) -> str:
+        its = [(s.iterations, s.rel_residual) for s in self.solves]
+        return (", ".join(f"{k} {v:.3f}" for k, v in self.secs.items())
+                + f"; CG iterations and relative residual {its}")
+
+
+def timed_engine(eng, secs):
+    """Time the engine's measure and reconstruct calls into ``secs``."""
+    for step in ("measure", "reconstruct"):
+        def timed(*a, _fn=getattr(eng, step), _step=step, **k):
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[_step] = time.perf_counter() - t
+            return out
+        setattr(eng, step, timed)
+
+
+def same_family(a, b) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[c], b[c]) for c in a)
+
+
+def family_gap(got, want) -> float:
+    """max |got - want| over a family, over max |want|."""
+    scale = max(max(float(np.abs(t).max()) for t in want.values()), 1.0)
+    return max(float(np.abs(got[c] - want[c]).max()) for c in want) / scale
+
+
+def postprocess_twice(name, card, eng, margs, mode, **kw):
+    """``eng.release(postprocess=mode)`` twice from one seed, stages timed,
+    the kernel counts of the first call; the two families bit-identical."""
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    fams, counts, stages = [], None, None
+    for i in range(2):
+        secs = {}
+        timed_engine(eng, secs)
+        reset_chain_stats()
+        with ReleaseStages() as st:
+            t0 = time.perf_counter()
+            tables, _ = eng.release(margs, torch.Generator(
+                "cuda").manual_seed(SEED), postprocess=mode, **kw)
+            secs["release"] = time.perf_counter() - t0
+        if i == 0:
+            counts, stages = chain_stats(), st
+        fams.append(tables)
+        print(f"[{name}] {mode} call {i + 1} seconds: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+              + f"; {st.line()} | {card}")
+    same = same_family(*fams)
+    print(f"[{name}] two {mode} calls from one seed bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"two {mode} releases from one seed differ")
+    return fams[0], counts, stages
+
+
+def cg_kernel_ms(name, card, plan, tables):
+    """Device ms of one CG solve by kernel (profiler; at most
+    CG_PROFILE_ITERS iterations, on an operator whose device set-up is
+    done)."""
+    from repro_torch.release import ConsistencyOperator, solve_consistency
+    op = ConsistencyOperator(plan)
+    solve_consistency(plan, tables, device="cuda", operator=op, maxiter=1)
+    done = []
+    ms = kernel_ms_by_name(lambda: done.append(solve_consistency(
+        plan, tables, device="cuda", operator=op, maxiter=CG_PROFILE_ITERS)))
+    print(f"[{name}] device ms of one CG solve ({done[-1].iterations} "
+          f"iterations) by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items()))
+          + f" | {card}")
+    return op
+
+
+def phase_release_adult(card, plan, margs):
+    """[release-adult]: consistent (6 sigma, == raw, two calls bit-identical,
+    the card's float32 CG against the host fp64 CG), nonneg (cells >= 0,
+    sums == the fitted total) and synthesize(48,842) on Adult <=3-way."""
+    from repro_torch.engine import MarginalEngine
+    from repro_torch.release import (project_nonneg, solve_consistency,
+                                     synth_report)
+    eng = MarginalEngine(plan, device="cuda")
+    raw, _ = eng.release(margs, torch.Generator("cuda").manual_seed(SEED))
+    cons, counts, _st = postprocess_twice("release-adult", card, eng, margs,
+                                          "consistent")
+    worst = check_tables(plan, cons, margs, 6.0)
+    gap = family_gap(cons, raw)
+    op = cg_kernel_ms("release-adult", card, plan, raw)
+    t0 = time.perf_counter()
+    dev = solve_consistency(plan, raw, device="cuda", operator=op)
+    t1 = time.perf_counter()
+    host = solve_consistency(plan, raw, backend="host", operator=op)
+    t2 = time.perf_counter()
+    r_err = float(np.abs(dev.r - host.r).max()) / max(
+        float(np.abs(host.r).max()), 1.0)
+    print(f"[release-adult] consistent: worst table {worst:.3f} sigma (bound "
+          f"6), max|consistent - raw| / max|raw| {gap:.3e} (bound {CG_ATOL}); "
+          f"card float32 CG {t1 - t0:.3f} s, {dev.iterations} iterations, rel "
+          f"residual {dev.rel_residual:.3e}; host fp64 CG {t2 - t1:.3f} s, "
+          f"{host.iterations} iterations; max|r_card - r_host| / max|r_host| "
+          f"{r_err:.3e} (bound {CG_ATOL}); launches {counts}")
+    if not (gap <= CG_ATOL and r_err <= CG_ATOL):
+        raise AssertionError("the consistent Adult family left the raw one "
+                             "or the host CG")
+    secs = {}
+    timed_engine(eng, secs)
+    with ReleaseStages() as st:
+        nn, _ = eng.release(margs, torch.Generator("cuda").manual_seed(SEED),
+                            postprocess="nonneg")
+    total = st.solves[-1].total
+    off = max(abs(float(t.sum()) - total) / np.spacing(total)
+              for t in nn.values())
+    neg = sum(int((t < 0).sum()) for t in nn.values())
+    again = [project_nonneg(plan.domain, cons, total, device="cuda")
+             for _ in range(2)]
+    t0 = time.perf_counter()
+    recs = eng.synthesize(ADULT_RECORDS, torch.Generator("cuda").manual_seed(SEED))
+    secs["synthesis"] = time.perf_counter() - t0
+    sizes = np.array(plan.domain.sizes)
+    rep = synth_report(plan.domain, nn, recs)
+    print(f"[release-adult] nonneg seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; {st.line()}; negative cells {neg}, worst |sum - total| "
+          f"{off:.1f} ulp of the fitted total {total:.6f}; the card's "
+          f"projection twice bit-identical {same_family(*again)}; "
+          f"synthesize({ADULT_RECORDS}) {recs.shape} {recs.dtype}: "
+          f"{rep.summary()} | {card}")
+    if neg or off > 2 or not same_family(*again):
+        raise AssertionError("the nonneg Adult family is negative, off its "
+                             "total, or not reproducible")
+    if not (recs.shape == (ADULT_RECORDS, plan.domain.n_attrs)
+            and recs.dtype == np.int32 and recs.min() >= 0
+            and np.all(recs.max(axis=0) < sizes)):
+        raise AssertionError("synthetic Adult records out of shape or range")
+    return counts
+
+
+def chain_implied_marginals(domain, tables, n_attrs):
+    """The (i, i+1) marginals of the joint that junction sampling draws
+    from on the chain (0,1),...,(n-2,n-1): p(x_0) from table (0,1), then
+    p(x_i, x_i+1) = p(x_i) * p(x_i+1 | x_i) with the conditional from
+    table (i,i+1), the sampler's own _conditional_table.  Where the tables
+    agree on every shared attribute this is the tables themselves."""
+    from repro_torch.release.synth import _conditional_table
+    out = {}
+    p = _conditional_table(domain, tables[(0, 1)], (0, 1), 0, ())[0]
+    for i in range(n_attrs - 1):
+        c = (i, i + 1)
+        cond = _conditional_table(domain, tables[c], c, i + 1, (i,))
+        joint = p[:, None] * cond
+        out[c] = joint.reshape(-1) * float(np.asarray(tables[c]).sum())
+        p = joint.sum(axis=0)
+    return out
+
+
+def phase_release_adult_tree(card, adult, records):
+    """[release-adult-tree]: the 13-clique chain (0,1),...,(12,13) on
+    Adult's domain, nonneg then synthesize(1,000,000).  Gates: max_tv < 0.05
+    against the released tables, and chi-square at z = 6 against the
+    marginals of the joint junction sampling draws from (exact on a
+    tree).  The chi-square against the released tables is printed: the
+    projection clips cells per table, so neighbouring tables disagree on
+    their shared attribute and the sampler's joint is not theirs (the JAX
+    package's nonneg_release does the same; tests/test_torch_release.py)."""
+    from repro_torch.core import select_sum_of_variances
+    from repro_torch.core.domain import MarginalWorkload
+    from repro_torch.data.tabular import marginals_from_records
+    from repro_torch.engine import MarginalEngine
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    from repro_torch.release import synth_report
+    wk = MarginalWorkload(adult, tuple((i, i + 1)
+                                       for i in range(adult.n_attrs - 1)))
+    plan = select_sum_of_variances(wk, 1.0)
+    margs = marginals_from_records(adult, plan.cliques, records)
+    eng = MarginalEngine(plan, device="cuda")
+    secs = {}
+    timed_engine(eng, secs)
+    reset_chain_stats()
+    with ReleaseStages() as st:
+        nn, _ = eng.release(margs, torch.Generator("cuda").manual_seed(SEED),
+                            postprocess="nonneg")
+    counts = chain_stats()
+    t0 = time.perf_counter()
+    recs = eng.synthesize(TREE_RECORDS, torch.Generator("cuda").manual_seed(SEED))
+    secs["synthesis"] = time.perf_counter() - t0
+    rep = synth_report(adult, nn, recs)
+    implied = synth_report(adult, chain_implied_marginals(
+        adult, nn, adult.n_attrs), recs)
+
+    def excess(r):
+        return max(c.chi2 - c.dof - 6.0 * math.sqrt(2.0 * c.dof)
+                   for c in r.checks)
+    print(f"[release-adult-tree] seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; {st.line()}; launches {counts}")
+    print(f"[release-adult-tree] synthesize({TREE_RECORDS}): against the "
+          f"released tables {rep.summary()}, chi-square ok(z=6) {rep.ok(6.0)} "
+          f"(worst excess over the bound {excess(rep):.1f}); against the "
+          f"sampler's chain joint {implied.summary()}, ok(z=6) "
+          f"{implied.ok(6.0)} (worst excess {excess(implied):.1f}) | {card}")
+    if not (rep.max_tv < 0.05 and implied.ok(6.0)):
+        raise AssertionError("tree synthesis off its tables or its joint")
+    return counts
+
+
+def phase_release_synth(card, plan, margs):
+    """[release-synth]: Synth-10^100 <=3-way, postprocess="consistent"
+    twice (7 sigma, == raw, bit-identical), peak device memory."""
+    from repro_torch.engine import MarginalEngine
+    eng = MarginalEngine(plan, device="cuda")
+    raw, _ = eng.release(margs, torch.Generator("cuda").manual_seed(SEED))
+    torch.cuda.reset_peak_memory_stats()
+    cons, counts, _st = postprocess_twice("release-synth", card, eng, margs,
+                                          "consistent")
+    peak = torch.cuda.max_memory_allocated()
+    worst = check_tables(plan, cons, margs, 7.0)
+    gap = family_gap(cons, raw)
+    del raw
+    cg_kernel_ms("release-synth", card, plan, cons)
+    print(f"[release-synth] {len(plan.cliques)} closure cliques; worst table "
+          f"{worst:.3f} sigma (bound 7); max|consistent - raw| / max|raw| "
+          f"{gap:.3e} (bound {CG_ATOL}); peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {counts} | {card}")
+    if not gap <= CG_ATOL:
+        raise AssertionError("the consistent Synth family left the raw one")
+    return counts
+
+
+def phase_release_secure(card, eng, margs):
+    """[release-secure]: the [secure-synth2] engine with postprocess=
+    "nonneg"; every table keeps the measured integer total."""
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    secs = {}
+    timed_engine(eng, secs)
+    reset_chain_stats()
+    with ReleaseStages() as st:
+        t0 = time.perf_counter()
+        nn, meas = eng.release(margs, torch.Generator("cuda").manual_seed(SEED),
+                               postprocess="nonneg")
+        secs["release"] = time.perf_counter() - t0
+    counts = chain_stats()
+    measured = float(np.asarray(meas[()].omega).reshape(-1)[0])
+    sums = [float(t.sum()) for t in nn.values()]
+    kept = sum(round(v) == int(measured) for v in sums)
+    exact = sum(v == measured for v in sums)
+    neg = sum(int((t < 0).sum()) for t in nn.values())
+    print(f"[release-secure] seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; {st.line()}; measured integer total {measured:.0f}: kept by "
+          f"{kept} of {len(sums)} tables (float sum equal to it in {exact}); "
+          f"negative cells {neg}; launches {counts} | {card}")
+    if not (measured.is_integer() and kept == len(sums) and neg == 0):
+        raise AssertionError("a secure nonneg table lost the measured total")
     return counts
 
 
@@ -1190,10 +1548,18 @@ def main() -> int:
     fresh_tuning("secure")
     opt = phase_select_device(card, plan.workload, splan.workload, splan)
     phase_select_convex(card, plan.workload, opt)
-    secure_counts = (phase_secure_adult(card, adult, plan),
-                     phase_secure_synth2(card, synth))
+    secure_adult_counts = phase_secure_adult(card, adult, plan)
+    synth2_counts, synth2_eng, synth2_margs = phase_secure_synth2(card, synth)
+    secure_counts = (secure_adult_counts, synth2_counts)
+    release_counts = (
+        phase_release_adult(card, plan, adult_margs),
+        phase_release_adult_tree(card, adult, synthetic_records(
+            adult, ADULT_RECORDS, SEED)),
+        phase_release_synth(card, splan, mixture_marginals(
+            synth, splan.cliques, 1e6, SEED)),
+        phase_release_secure(card, synth2_eng, synth2_margs))
     counts = (adult_counts, synth_counts) + rplus_counts + (
-        tune_counts, bf16_counts) + secure_counts
+        tune_counts, bf16_counts) + secure_counts + release_counts
     launches = {"fused_chain": sum(c["fused_launches"] - c["narrow_launches"]
                                    for c in counts),
                 "fused_chain_bf16": sum(c["bf16_launches"] for c in counts),

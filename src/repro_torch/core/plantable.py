@@ -1,5 +1,6 @@
 r"""PlanTable: the arrayized planner IR — the port's copy of
-``repro.core.plantable`` (host numpy, unchanged but for ``device_arrays``).
+``repro.core.plantable`` (host numpy, unchanged but for ``device_arrays``
+and ``device_segments``).
 
 The whole workload closure is flattened into indexed arrays, built ONCE per
 workload:
@@ -392,6 +393,21 @@ class PlanTable:
                    torch.as_tensor(self.inc_cols, device=dev),
                    torch.as_tensor(self.inc_vals, dtype=torch.float64,
                                    device=dev))
+            self._device[key] = ent
+        return ent
+
+    def device_segments(self, device=None):
+        """(rows, cols): the incidence as two
+        :class:`~repro_torch.core.segment.Segments` on ``device``, the
+        workload rows and the closure columns of its entries; cached per
+        device.  Sums over them add in an order fixed by the data, on CUDA
+        too (``index_add_`` does not)."""
+        from .segment import Segments
+        _p, rows, cols, _v = self.device_arrays(device)
+        key = "segments:" + str(rows.device)
+        ent = self._device.get(key)
+        if ent is None:
+            ent = (Segments(rows, self.m), Segments(cols, self.n))
             self._device[key] = ent
         return ent
 

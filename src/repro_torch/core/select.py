@@ -8,7 +8,7 @@ workload, and every objective is segment-sums over them.
 * ``select_sum_of_variances`` — the closed form of Lemma 2 (no iterations);
 * ``select_max_variance``    — exact max-variance via the concave dual: the
   exponentiated-gradient ascent runs as ``np.bincount`` segment-sums on the
-  host (``backend="numpy"``) or as a torch loop of two ``index_add_``
+  host (``backend="numpy"``) or as a torch loop of two segment-sum
   contractions per step on the device (``backend="device"``, chunked, with
   float64 host checkpoints certifying the primal–dual gap);
 * ``select_convex``          — any *regular*, positively 1-homogeneous loss of
@@ -266,20 +266,20 @@ def _maxvar_numpy(p, rows, cols, vals, cw, c, iters, tol, n, m, mu0=None):
 
 
 def _maxvar_run_chunk(mu, bp, bmu, t0: int, p, rows, cols, vals, icw,
-                      cc: float, tiny: float, logm: float, n: int, m: int,
-                      chunk: int):
+                      cc: float, tiny: float, logm: float, chunk: int):
     """``chunk`` exp-gradient iterations on the device: each one two
-    ``index_add_`` contractions over the incidence (the JAX package's
-    ``lax.scan`` over ``segment_sum``).  Nothing here reads a value back to
-    the host, so the iterations queue on the device without a sync."""
+    contractions over the incidence (the JAX package's ``lax.scan`` over
+    ``segment_sum``), as sums over the :class:`~repro_torch.core.segment.
+    Segments` ``rows`` and ``cols``, whose order of addition is fixed by
+    the data: the same inputs give the same bits on every call.  Nothing
+    here reads a value back to the host, so the iterations queue on the
+    device without a sync."""
     for t in range(t0, t0 + chunk):
-        v = torch.zeros(n, dtype=mu.dtype, device=mu.device).index_add_(
-            0, cols, vals * (mu * icw)[rows])
+        v = cols.sum(vals * rows.gather(mu * icw))
         sq = torch.sqrt(torch.clamp_min(v, 0.0) * p)
         T = sq.sum() ** 2 / cc
         u = torch.sqrt(T * p / (cc * torch.clamp_min(v, tiny)))
-        var = torch.zeros(m, dtype=mu.dtype, device=mu.device).index_add_(
-            0, rows, vals * u[cols]) * icw
+        var = rows.sum(vals * cols.gather(u)) * icw
         primal = var.max()
         better = primal < bp
         bp = torch.where(better, primal, bp)
@@ -296,12 +296,14 @@ def _maxvar_device(table, cw, c, iters, tol, chunk, mu0=None, device=None):
     certify the primal–dual gap.
 
     ``mu0`` warm-starts the dual point; a warm start also shrinks the first
-    chunk so the gap certificate is consulted early.  Scatter-adds on CUDA
-    sum in no fixed order, so a device plan is certified by its float64 gap,
-    not held bit-identical to a CPU run."""
+    chunk so the gap certificate is consulted early.  The contractions add
+    in an order fixed by the data, so two calls on one device return the
+    same plan bit for bit; the CPU and the card differ by their arithmetic
+    only, and a device plan is certified by its float64 gap."""
     n, m = table.n, table.m
     p, rows, cols, vals = table.p, table.inc_rows, table.inc_cols, table.inc_vals
-    p_d, rows_d, cols_d, vals_d = table.device_arrays(device)
+    p_d, _rows, _cols, vals_d = table.device_arrays(device)
+    rows_d, cols_d = table.device_segments(device)
     dev, dt = p_d.device, p_d.dtype
     icw = torch.as_tensor(1.0 / cw, dtype=dt, device=dev)
     tiny = float(torch.finfo(dt).tiny)
@@ -320,7 +322,7 @@ def _maxvar_device(table, cw, c, iters, tol, chunk, mu0=None, device=None):
         k = min(first_chunk if t0 == 0 else chunk, iters - t0)
         mu_d, bp_d, bmu_d = _maxvar_run_chunk(
             mu_d, bp_d, bmu_d, t0, p_d, rows_d, cols_d, vals_d, icw, cc, tiny,
-            logm, n, m, k)
+            logm, k)
         t0 += k
         for cand in (mu_d.cpu().numpy(), bmu_d.cpu().numpy()):
             primal, u, T = _maxvar_eval_fp64(cand, p, rows, cols, vals,
@@ -402,25 +404,28 @@ def select_convex(workload: MarginalWorkload, pcost_budget: float = 1.0,
     computed before the plan is constructed, in float64: for a callable, by
     calling it on a float64 CPU tensor and taking ``float()`` (the JAX
     package calls it on a numpy array).  ``seed`` is accepted for signature
-    parity; the solve draws no randomness.
+    parity; the solve draws no randomness.  The variance contraction and its
+    gradient are segment sums whose order of addition is fixed by the data
+    (:class:`~repro_torch.core.segment.Segments`), so two calls on one
+    device return the same plan bit for bit.
     """
     _check_strategy(strategy, workload, blocks, max_block)
     table = plan_table(workload) if table is None else table
     v_lin = table.sov_coeffs(weights)       # historical default-1.0 weighting
     w = table.weight_vector(weights, default_to_workload=True)
-    m = table.m
     if not callable(loss) and loss not in ("max_variance", "sum_of_variances"):
         raise ValueError(loss)
 
-    p_d, rows_d, cols_d, vals_d = table.device_arrays(resolve_device(device))
-    dt, dev = p_d.dtype, p_d.device
+    dev = resolve_device(device)
+    p_d, _rows, _cols, vals_d = table.device_arrays(dev)
+    rows_d, cols_d = table.device_segments(dev)
+    dt = p_d.dtype
     w_d = torch.as_tensor(w, dtype=dt, device=dev)
     v_lin_d = torch.as_tensor(v_lin, dtype=dt, device=dev)
 
     def loss_fn(theta, tau):
         u = torch.exp(theta)
-        var = torch.zeros(m, dtype=dt, device=dev).index_add(
-            0, rows_d, vals_d * u[cols_d]) / w_d
+        var = rows_d.sum(vals_d * cols_d.gather(u)) / w_d
         if callable(loss):
             L = loss(var)
         elif loss == "max_variance":

@@ -57,6 +57,7 @@ from repro_torch.core.reconstruct import reconstruct_all_batched, u_chain_factor
 from repro_torch.engine.engine import ChainRegistry, EngineStats, ReleaseServing
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
+from repro_torch.release import measured_integer_total
 
 # Integers below 2^24 are exact in float32, below 2^53 in float64.
 _MANTISSA_BITS = {torch.float32: 24, torch.float64: 53}
@@ -295,6 +296,12 @@ class DiscreteEngine(ReleaseServing, ChainRegistry):
         return reconstruct_all_batched(self.plan, measurements, cliques,
                                        use_kernel=self.use_kernel,
                                        device=self.device)
+
+    # release()/synthesize() come from ReleaseServing; the secure path pins
+    # the consistency fit to the *measured integer total*, so postprocessed
+    # families keep it integer-exactly.
+    def _postprocess_total(self, measurements) -> float:
+        return measured_integer_total(measurements)
 
     # ------------------------------------------------------------ accounting
     def rho(self) -> float:

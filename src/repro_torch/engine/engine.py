@@ -12,6 +12,8 @@ Usage::
     engine = MarginalEngine(plan)                 # device="cuda" by default
     gen = torch.Generator(device="cuda").manual_seed(0)
     tables, meas = engine.release(marginals, gen)
+    nonneg, meas = engine.release(marginals, gen, postprocess="nonneg")
+    records = engine.synthesize(100_000, gen)
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from repro_torch.kernels.autotune.tuner import (TunedConfig, autotune_mode,
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 from repro_torch.kernels.kron_matvec.fused import (config_launch, factor_shapes,
                                                    fused_chain_matvec)
+from repro_torch.release import (POSTPROCESS_MODES, postprocess_release,
+                                 synthesize_records)
 
 
 class EngineStats:
@@ -43,13 +47,15 @@ class EngineStats:
     * device_h_groups / exact_h_groups / host_y_groups — DiscreteEngine
       exactness tiers (H on the device chain / on the exact host tiers; Y†
       on the float64 host fallback)
+    * postprocess_calls / synthesize_calls — releases postprocessed by
+      :mod:`repro_torch.release`, and synthesize calls
     """
 
     _FIELDS = ("measure_calls", "reconstruct_calls",
                "measure_signatures", "reconstruct_signatures",
                "fused_chains", "fallback_chains", "tuned_chains",
                "compile_warmups", "device_h_groups", "exact_h_groups",
-               "host_y_groups")
+               "host_y_groups", "postprocess_calls", "synthesize_calls")
 
     __slots__ = _FIELDS
 
@@ -153,24 +159,79 @@ class ChainRegistry:
 
 
 class ReleaseServing:
-    """The release surface of a serving engine."""
+    """release/postprocess/synthesize surface shared by all serving engines.
+
+    ``release(..., postprocess="consistent"|"nonneg")`` routes the raw
+    reconstruction through :mod:`repro_torch.release`: covariance-weighted
+    consistency (precision weights straight off the plan's IR, the CG's
+    chains on the engine's device and kernels) and, for ``"nonneg"``, the
+    signature-batched simplex projection with exact total preservation.
+    ``synthesize`` samples records from the last non-negative release (or
+    explicit ``tables``).  Engines override ``_postprocess_total`` (the
+    secure path pins the measured integer total) and ``_check_postprocess``
+    (RP+ restricts to identity-basis schemas).
+    """
+
+    _synth_tables: Optional[Dict[Clique, np.ndarray]] = None
+
+    def _postprocess_total(self, measurements) -> Optional[float]:
+        """Total-count pin for the consistency fit (None: fit it)."""
 
     def _check_postprocess(self) -> None:
         """Raise when this plan family's tables are not plain marginals."""
 
     def release(self, marginals, gen: torch.Generator,
-                postprocess: Optional[str] = None):
-        """measure → reconstruct; returns (tables, meas).
+                postprocess: Optional[str] = None,
+                total: Optional[float] = None, weights=None,
+                mw_rounds: int = 0, **post_opts):
+        """measure → reconstruct (→ postprocess); returns (tables, meas).
 
-        ``postprocess=None`` is the raw unbiased release.  The JAX package's
-        ``"consistent"`` / ``"nonneg"`` postprocessing is not ported yet.
+        ``postprocess=None`` is the raw unbiased release; ``"consistent"`` /
+        ``"nonneg"`` run the release subsystem with ``total``/``weights``/
+        ``mw_rounds`` (and ``post_opts``: ``backend``, ``tol``, ``maxiter``)
+        forwarded to :func:`repro_torch.release.postprocess_release`, on the
+        engine's device and with its ``use_kernel``.  The plan family and
+        the mode are checked before anything is measured.
         """
         if postprocess is not None:
             self._check_postprocess()
-            raise NotImplementedError("release postprocessing is not ported "
-                                      "yet (ROADMAP queue 1, item 11)")
+            if postprocess not in POSTPROCESS_MODES:
+                raise ValueError(f"postprocess mode must be one of "
+                                 f"{POSTPROCESS_MODES}, got {postprocess!r}")
         meas = self.measure(marginals, gen)
-        return self.reconstruct(meas), meas
+        tables = self.reconstruct(meas)
+        if postprocess is not None:
+            if total is None:
+                total = self._postprocess_total(meas)
+            tables = postprocess_release(
+                self.plan, tables, postprocess, total=total, weights=weights,
+                mw_rounds=mw_rounds, device=self.device,
+                use_kernel=self.use_kernel, **post_opts)
+            self.stats.bump("postprocess_calls")
+            if postprocess == "nonneg":
+                self._synth_tables = tables
+        return tables, meas
+
+    def synthesize(self, n_records: int, gen: torch.Generator, tables=None,
+                   order=None, batch: Optional[int] = None) -> np.ndarray:
+        """Sample (n_records, n_attrs) int32 synthetic records.
+
+        ``tables=None`` uses the engine's last ``postprocess="nonneg"``
+        release; ``gen`` is a ``torch.Generator`` on the engine's device.
+        Junction-order conditional sampling is vectorized over the records
+        (:func:`repro_torch.release.synthesize_records`) and never touches
+        the contingency table.
+        """
+        if tables is None:
+            tables = self._synth_tables
+            if tables is None:
+                raise ValueError(
+                    "no non-negative release to sample from: call "
+                    "release(..., postprocess=\"nonneg\") first or pass "
+                    "tables=")
+        self.stats.bump("synthesize_calls")
+        return synthesize_records(self.plan.domain, tables, n_records, gen,
+                                  order=order, batch=batch, device=self.device)
 
 
 class MarginalEngine(ReleaseServing, ChainRegistry):

@@ -9,6 +9,7 @@ CPU, and it never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -55,3 +56,45 @@ def _may_be_identity(f: np.ndarray) -> bool:
     if not abs(float(f[0, 0]) - 1.0) <= 1e-8 + 1e-5:
         return False
     return f.shape[1] < 2 or abs(float(f[0, 1])) <= 1e-8
+
+
+# Factors on the card, by content: (device, dtype, shape, bytes) -> tensor.
+_DEVICE_FACTORS: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_DEVICE_FACTORS_MAX_BYTES = 64 << 20   # host bytes of the keys held at most
+_device_factor_bytes = 0
+
+
+def device_factor(a: np.ndarray, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """``a`` as a ``dtype`` tensor on ``device``, copied once per content.
+
+    A copy from pageable host memory to the card waits for the stream to
+    drain, so a copy in every chain call leaves the card idle between
+    back-to-back launches for the host's round trip.  A chain's factors
+    repeat from call to call, so each distinct array is copied once and kept,
+    least recently used first out, up to 64 MiB of keys.  The tensor is
+    shared between calls: kernels read it and nothing writes it.
+    """
+    global _device_factor_bytes
+    a = np.ascontiguousarray(a)
+    key = (str(device), dtype, a.dtype.str, a.shape, a.tobytes())
+    t = _DEVICE_FACTORS.get(key)
+    if t is not None:
+        _DEVICE_FACTORS.move_to_end(key)
+        return t
+    t = torch.from_numpy(a.copy()).to(dtype).to(device)
+    _DEVICE_FACTORS[key] = t
+    _device_factor_bytes += a.nbytes
+    while _device_factor_bytes > _DEVICE_FACTORS_MAX_BYTES \
+            and len(_DEVICE_FACTORS) > 1:
+        old, _ = _DEVICE_FACTORS.popitem(last=False)
+        _device_factor_bytes -= len(old[-1])
+    return t
+
+
+def clear_device_factors() -> None:
+    """Drop every kept factor (their device memory returns to the caching
+    allocator)."""
+    global _device_factor_bytes
+    _DEVICE_FACTORS.clear()
+    _device_factor_bytes = 0

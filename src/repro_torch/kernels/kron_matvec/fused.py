@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from .._build import load
-from ._layout import normalize_factor
+from ._layout import device_factor, normalize_factor
 from .kron_matvec import kron_axis_matvec_plain
 from .ops import per_axis_chain
 from .stats import CHAIN_STATS
@@ -371,8 +371,8 @@ def _launch(plan: ChainPlan, s_facs: Sequence[Optional[np.ndarray]],
             x: torch.Tensor) -> torch.Tensor:
     b = x.shape[0]
     dt, _, code = _OPERANDS[plan.compute_dtype]
-    # Packed and rounded to the operand type on the host: one copy.
-    f = torch.from_numpy(pack_factors(plan, s_facs)).to(dt).to(x.device)
+    # Packed on the host, rounded to the operand type and copied once.
+    f = device_factor(pack_factors(plan, s_facs), dt, x.device)
     y = torch.empty((b, plan.n_out), dtype=torch.float32, device=x.device)
     if b == 0:
         return y

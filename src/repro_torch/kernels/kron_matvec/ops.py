@@ -17,7 +17,7 @@ from typing import Sequence
 
 import torch
 
-from ._layout import normalize_factor
+from ._layout import device_factor, normalize_factor
 from .kron_matvec import kron_axis_matvec
 
 
@@ -32,7 +32,9 @@ def per_axis_chain(factors: Sequence, x: torch.Tensor, dims: Sequence[int],
             continue
         L = lead * math.prod(cur[:axis])
         R = math.prod(cur[axis + 1:])
-        s_t = torch.as_tensor(s, dtype=torch.float32, device=x.device)
+        s_t = torch.as_tensor(s, dtype=torch.float32) \
+            if x.device.type == "cpu" else device_factor(s, torch.float32,
+                                                          x.device)
         x = apply(s_t, x.reshape(L, cur[axis], R)).reshape(-1)
         cur[axis] = s.shape[0]
     return x

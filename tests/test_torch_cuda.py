@@ -573,3 +573,109 @@ def test_device_maxvar_on_card_within_the_gap(cuda):
         gaps.append(primal - dual)
     assert abs(a.loss_value - b.loss_value) <= sum(gaps) + 1e-12 * a.loss_value
     assert b.pcost == pytest.approx(1.0, rel=1e-9)
+
+
+def _two_calls_equal(fn):
+    a, b = fn(), fn()
+    return np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("sizes", [[5, 3, 4, 2, 6], [10] * 12])
+def test_device_maxvar_bit_identical_over_two_calls(cuda, sizes):
+    from repro_torch.core.select import select_max_variance
+    wk = all_kway(Domain.create(sizes), 3, include_lower=True)
+    assert _two_calls_equal(lambda: select_max_variance(
+        wk, 1.0, iters=500, backend="device", device=cuda).sigma)
+
+
+def _l2_of_variances(var):
+    return torch.sqrt(torch.sum(var * var))
+
+
+@pytest.mark.parametrize("loss", ["max_variance", _l2_of_variances])
+def test_select_convex_bit_identical_over_two_calls(cuda, loss):
+    from repro_torch.core import select_convex
+    wk = all_kway(Domain.create([100, 100, 99, 85, 9, 7, 2, 2]), 3,
+                  include_lower=True)
+    assert _two_calls_equal(lambda: select_convex(
+        wk, 1.0, loss=loss, steps=300, device=cuda).sigma)
+
+
+def _release_case(sizes, k, seed=0):
+    """(plan, raw tables) of a small release on the card."""
+    plan = select_sum_of_variances(all_kway(Domain.create(sizes), k,
+                                            include_lower=True), 1.0)
+    x = np.random.default_rng(seed).integers(0, 3, plan.domain.universe_size())
+    margs = exact_marginals_from_x(plan.domain, plan.cliques, x)
+    eng = MarginalEngine(plan, device="cuda")
+    tables, _ = eng.release(margs, torch.Generator("cuda").manual_seed(seed))
+    return plan, tables
+
+
+@pytest.mark.parametrize("sizes,k,route", [
+    ([10, 10, 10, 4], 3, "fused_launches"),        # every chain fits a block
+    ([40, 40, 40, 3], 3, "axis_launches"),          # (40,40,40) goes per axis
+])
+def test_consistency_cg_kernel_route_matches_plain_on_card(cuda, sizes, k,
+                                                          route):
+    """The CG's chains on the kernels against the plain torch chain on the
+    card (atol 5e-5 of max|r|), the route's kernel launched, and two solves
+    from one set of tables equal bit for bit."""
+    from repro_torch.release import solve_consistency
+    plan, tables = _release_case(sizes, k)
+    reset_chain_stats()
+    got = solve_consistency(plan, tables, device=cuda, use_kernel=True)
+    st = chain_stats()
+    assert st[route] > 0, st
+    plain = solve_consistency(plan, tables, device=cuda, use_kernel=False)
+    host = solve_consistency(plan, tables, backend="host")
+    scale = max(float(np.abs(host.r).max()), 1.0)
+    assert float(np.abs(got.r - plain.r).max()) <= 5e-5 * scale
+    assert float(np.abs(got.r - host.r).max()) <= 5e-5 * scale
+    again = solve_consistency(plan, tables, device=cuda, use_kernel=True)
+    assert np.array_equal(got.r, again.r)
+    assert got.iterations == again.iterations
+
+
+def test_engine_postprocess_and_synthesize_on_card(cuda):
+    """nonneg on the card: non-negative, exact totals, the same tables on
+    two calls; synthesize from a card generator."""
+    plan = select_sum_of_variances(all_kway(Domain.create([10, 10, 10, 4]), 2,
+                                            include_lower=True), 1.0)
+    x = np.random.default_rng(1).integers(0, 3, plan.domain.universe_size())
+    margs = exact_marginals_from_x(plan.domain, plan.cliques, x)
+    eng = MarginalEngine(plan, device="cuda")
+    total = float(x.sum())
+    runs = [eng.release(margs, torch.Generator("cuda").manual_seed(3),
+                        postprocess="nonneg", total=total)[0]
+            for _ in range(2)]
+    for c in plan.workload.cliques:
+        assert np.array_equal(runs[0][c], runs[1][c])
+        assert np.all(runs[0][c] >= 0)
+        assert round(float(runs[0][c].sum())) == int(total)
+    recs = eng.synthesize(10_000, torch.Generator("cuda").manual_seed(4))
+    assert recs.shape == (10_000, 4) and recs.dtype == np.int32
+    assert np.array_equal(recs, eng.synthesize(
+        10_000, torch.Generator("cuda").manual_seed(4)))
+
+
+def test_kernels_copy_each_factor_once_and_never_serve_a_stale_one(cuda):
+    from repro_torch.kernels.kron_matvec import _layout
+    _layout.clear_device_factors()
+    rng = np.random.default_rng(5)
+    dims = (10, 10, 10)
+    facs = [rng.standard_normal((9, 10)).astype(np.float32) for _ in dims]
+    x = torch.as_tensor(rng.standard_normal((300, 1000)), dtype=torch.float32,
+                        device=cuda)
+    for kw in ({}, {"smem_budget": 0}):     # fused, then per-axis
+        first = fused_chain_matvec(facs, x, dims, **kw)
+        held = len(_layout._DEVICE_FACTORS)
+        assert held >= 1
+        assert torch.equal(fused_chain_matvec(facs, x, dims, **kw), first)
+        assert len(_layout._DEVICE_FACTORS) == held
+        moved = [f.copy() for f in facs]
+        moved[1][3, 4] += 2.0
+        got = fused_chain_matvec(moved, x, dims, **kw)
+        assert _rel(got, fused_chain_matvec_plain(moved, x, dims)) < REL
+        assert not torch.equal(got, first)
+    _layout.clear_device_factors()

@@ -77,8 +77,12 @@ def test_engine_via_plan_protocol_and_chain_roles():
     # an H and a Y† chain per measure group, a U chain per workload group
     assert sum(r["role"] == "measure" for r in rows) == 2 * len(groups)
     assert sum(r["role"] == "reconstruct" for r in rows) == len(recon)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.release(_margs(plan, 9), torch.Generator(), postprocess="nonneg")
+    tables, meas = eng.release(_margs(plan, 9), torch.Generator(),
+                               postprocess="nonneg")
+    total = float(meas[()].omega.reshape(-1)[0])
+    assert eng.stats.postprocess_calls == 1 and total.is_integer()
+    assert all(np.all(t >= 0) and round(float(t.sum())) == int(total)
+               for t in tables.values())
 
 
 @pytest.mark.parametrize("hi,tier", [(30, "device_h_groups"),

@@ -62,8 +62,9 @@ def test_engine_serves_like_measure_and_reconstruct():
     rows = eng.chain_plans()
     assert len(rows) == eng.stats.fused_chains + eng.stats.fallback_chains
     assert all(r["fused"] and r["smem_bytes"] <= 232448 for r in rows)
-    with pytest.raises(NotImplementedError):
-        eng.release(margs, torch.Generator(), postprocess="nonneg")
+    nonneg, _ = eng.release(margs, torch.Generator(), postprocess="nonneg")
+    assert eng.stats.postprocess_calls == 1
+    assert all(np.all(nonneg[c] >= 0) for c in plan.workload.cliques)
 
 
 def test_engine_counts_per_axis_chains():
@@ -95,7 +96,10 @@ def test_port_imports_neither_jax_nor_repro():
             " repro_torch.configs, repro_torch.configs.synth_ranges,"
             " repro_torch.kernels.autotune, repro_torch.roofline,"
             " repro_torch.core.accountant, repro_torch.core.dgauss,"
-            " repro_torch.core.discrete, repro_torch.engine.discrete_engine;"
+            " repro_torch.core.discrete, repro_torch.engine.discrete_engine,"
+            " repro_torch.core.segment, repro_torch.release,"
+            " repro_torch.release.consistency, repro_torch.release.nonneg,"
+            " repro_torch.release.synth;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),

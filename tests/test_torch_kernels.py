@@ -244,3 +244,34 @@ def test_plan_chain_carries_the_epilogue():
     assert (epi.rows, epi.smem_bytes, epi.fused_ok) == \
         (plain.rows, plain.smem_bytes, plain.fused_ok)   # scan in place
     assert epi.signature != plain.signature
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_device_factor_copies_each_content_once(dtype, rng):
+    from repro_torch.kernels.kron_matvec import _layout
+    _layout.clear_device_factors()
+    a = rng.standard_normal((5, 7)).astype(np.float32)
+    t = _layout.device_factor(a, dtype, torch.device("cpu"))
+    assert t.dtype == dtype and torch.equal(t, torch.as_tensor(a).to(dtype))
+    assert _layout.device_factor(a.copy(), dtype, torch.device("cpu")) is t
+    a[0, 0] += 1.0   # the kept tensor is a copy, and new content is new
+    u = _layout.device_factor(a, dtype, torch.device("cpu"))
+    assert u is not t and torch.equal(u, torch.as_tensor(a).to(dtype))
+    assert not torch.equal(u, t)
+    _layout.clear_device_factors()
+
+
+def test_device_factor_drops_the_oldest_past_its_byte_cap(rng, monkeypatch):
+    from repro_torch.kernels.kron_matvec import _layout
+    _layout.clear_device_factors()
+    monkeypatch.setattr(_layout, "_DEVICE_FACTORS_MAX_BYTES", 3 * 4 * 16)
+    arrs = [rng.standard_normal((4, 4)).astype(np.float32) for _ in range(5)]
+    kept = [_layout.device_factor(a, torch.float32, torch.device("cpu"))
+            for a in arrs]
+    assert len(_layout._DEVICE_FACTORS) == 3
+    assert _layout._device_factor_bytes == 3 * 4 * 16
+    assert _layout.device_factor(arrs[-1], torch.float32,
+                                 torch.device("cpu")) is kept[-1]
+    assert _layout.device_factor(arrs[0], torch.float32,
+                                 torch.device("cpu")) is not kept[0]
+    _layout.clear_device_factors()

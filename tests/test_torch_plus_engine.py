@@ -168,9 +168,15 @@ def test_plus_engine_postprocess_checks():
     wk = MarginalWorkload(dom, ((0, 1),))
     margs = {c: np.ones(dom.n_cells(c)) for c in [(), (0,), (1,), (0, 1)]}
     for kinds, err in ((["prefix", "identity"], ValueError),
-                       (["identity", "identity"], NotImplementedError)):
+                       (["identity", "identity"], None)):
         schema = PlusSchema.create(dom, kinds, strategy_mode="w", device="cpu")
         eng = select_plus(wk, schema, 1.0, device="cpu").engine(device="cpu")
+        if err is None:     # identity bases: the tables are marginals
+            tables, _ = eng.release(margs, torch.Generator(),
+                                    postprocess="consistent")
+            assert set(tables) == {(0, 1)}
+            assert eng.stats.postprocess_calls == 1
+            continue
         with pytest.raises(err):
             eng.release(margs, torch.Generator(), postprocess="consistent")
     with pytest.raises(ValueError, match="secure"):
