@@ -80,7 +80,30 @@ Phases, in order; any failure exits non-zero:
    7 sigma, equal to raw), device ms of one CG solve, peak device memory.
 16. [release-secure] the [secure-synth2] engine with "nonneg": every table
    keeps the measured integer total.
-17. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+17. [dnc-parity] divide and conquer on d = 40 (8 disjoint groups of 5
+   attributes, all <=3-way inside each): compare_with_monolithic's ratio
+   within 1e-9 of 1; CompositeEngine and MarginalEngine releases on the
+   card, each within 6 sigma of every exact marginal.
+18. [dnc-d500] d = 500 all <=2-way, strategy="dnc": seconds of select_dnc
+   and variances_array, blocks, straddlers, peak host RSS; a release over
+   mixture marginals (in-block and 1-way tables within 6 sigma, the worst
+   straddler printed in its proxy sigma), two releases from one seed
+   bit-identical, device ms by kernel, nonneg (cells >= 0, sums equal to
+   the pinned total) and synthesize(100,000).
+19. [sharded-adult] sharded tables of the Adult records on the card, alone
+   and under a one-rank NCCL group, equal to the host tables;
+   sharded_measure equal to MarginalEngine.measure bit for bit (the second
+   call a cache hit); corpus_marginal_release(postprocess="consistent")
+   within 6 sigma; the secure sharded measure of [secure-synth2] equal to
+   DiscreteEngine.measure bit for bit.
+20. [obs] one Adult release traced to a JSONL file: engine spans with
+   kernel.chain children, tables equal to the untraced ones, /metrics with
+   the shared families and the roofline gauges; seconds traced and not.
+21. [dnc-d200-auto] d = 200 all <=3-way: select(strategy="auto") returns a
+   CompositePlan (plan only; seconds, peak host RSS).
+22. [rplus-maxvar] RP+ max-variance on the card twice (sigma bit-identical)
+   and on the CPU (loss within rel 5e-3).
+23. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
 
@@ -1493,6 +1516,530 @@ def phase_release_secure(card, eng, margs):
     return counts
 
 
+DNC_D = 500            # [dnc-d500]: the README's headline D&C width
+DNC_AUTO_D = 200       # [dnc-d200-auto]: all <=3-way, past AUTO_DNC_NNZ
+DNC_MASS = 1e6         # records' mass of the mixture marginals
+SYNTH_RECORDS = 100_000
+OBS_ROUNDS = 4         # [obs]: off/on pairs, alternated
+
+
+def cuda_gen(seed=SEED):
+    return torch.Generator("cuda").manual_seed(seed)
+
+
+_PLAN_IN_CHILD = """
+import json, resource, sys, time
+sys.path.insert(0, {src!r})
+from repro_torch.core import CompositePlan, Domain, all_kway, select
+base = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+t0 = time.perf_counter()
+wk = all_kway(Domain.create([(i % 9) + 2 for i in range({d})]), {k},
+              include_lower=True)
+t1 = time.perf_counter()
+plan = select(wk, 1.0, strategy={strategy!r})
+t2 = time.perf_counter()
+comp = isinstance(plan, CompositePlan)
+print(json.dumps(dict(
+    workload_s=t1 - t0, select_s=t2 - t1, composite=comp,
+    marginals=len(wk.cliques), est=sum(1 << len(c) for c in wk.cliques),
+    blocks=plan.n_blocks if comp else 1,
+    straddlers=plan.decomposition.n_straddlers if comp else 0,
+    base_gib=base / 2**20,
+    peak_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)))
+"""
+
+
+def plan_in_child(d, k, strategy):
+    """select(all_kway(mixed_domain(d), k), strategy=...) in a child Python
+    process: its seconds and its peak RSS (``base_gib``: the peak after the
+    imports, torch's and what the fork inherited included)."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    out = subprocess.run([sys.executable, "-c", _PLAN_IN_CHILD.format(
+        src=src, d=d, k=k, strategy=strategy)], capture_output=True,
+        text=True, timeout=600, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def mixed_domain(d):
+    """d attributes of sizes (i % 9) + 2, as benchmarks/planner_bench.py."""
+    from repro_torch.core import Domain
+    return Domain.create([(i % 9) + 2 for i in range(d)])
+
+
+def blocked_workload(d, bs, k):
+    """Disjoint groups of ``bs`` attributes, all <=k-way inside each group
+    (benchmarks/planner_bench.py's exactly decomposable workload)."""
+    from itertools import combinations
+    from repro_torch.core import MarginalWorkload
+    cl = [()]
+    for g in range(0, d, bs):
+        for w in range(1, k + 1):
+            cl.extend(combinations(range(g, min(g + bs, d)), w))
+    return MarginalWorkload(mixed_domain(d), tuple(cl))
+
+
+def sigma_dev(plan, tables, exact, rows):
+    """max over ``rows`` of |table - exact| / sigma (the plan's variances)."""
+    sd = np.sqrt(plan.variances_array())
+    wk = plan.workload.cliques
+    worst = 0.0
+    for r in rows:
+        c = wk[r]
+        t = np.asarray(tables[c], np.float64)
+        if t.shape != (plan.domain.n_cells(c),) or not np.all(np.isfinite(t)):
+            raise AssertionError(f"table {c} has shape {t.shape} or "
+                                 "non-finite values")
+        worst = max(worst, float(np.abs(t - exact[c]).max() / sd[r]))
+    return worst
+
+
+def straddler_dev(plan, tables, exact, rows):
+    """max over the straddling ``rows`` of |table - target| / sigma.  The
+    target is what the product-of-blocks estimator estimates: the outer
+    product of the exact part marginals (summed out of the exact table)
+    over N^(parts - 1).  sigma is the estimator's first-order (delta-method)
+    deviation, from the parts' variances and their covariances through the
+    shared total T: every reconstructed marginal holds T/cells in each cell
+    and the blocks' other noise is independent, so Cov(P_p, T) = Var T / n_p
+    and Cov(P_p, P_q) = Var T / (n_p n_q) for n_p cells of part p.  Rows
+    with one shape and one split of their axes into parts are checked in
+    one batch."""
+    dom = plan.domain
+    wk = plan.workload.cliques
+    block_of = plan.partition.block_of_array()
+    var = dict(zip(wk, plan.variances_array()))
+    vt = plan.block_plans[0].marginal_variance(())
+    n = float(np.asarray(exact[()], np.float64).reshape(-1)[0])
+    groups = {}                     # (shape, part label per axis) -> rows
+    for r in rows:
+        c = wk[r]
+        first = {}
+        labels = tuple(first.setdefault(int(b), len(first))
+                       for b in block_of[list(c)])
+        groups.setdefault((dom.clique_sizes(c), labels), []).append(r)
+    worst = 0.0
+    for (shape, labels), grp in groups.items():
+        g, nd, k = len(grp), len(shape), max(labels) + 1
+        m = np.stack([np.asarray(exact[wk[r]], np.float64) for r in grp]
+                     ).reshape((g,) + shape)
+        t = np.stack([np.asarray(tables[wk[r]], np.float64) for r in grp])
+        if t.shape != (g, m[0].size) or not np.all(np.isfinite(t)):
+            raise AssertionError(f"a straddler of shape {shape} has a wrong "
+                                 "shape or non-finite values")
+        parts = []                  # (exact part, its variance, its cells)
+        for p in range(k):
+            axes = [i for i in range(nd) if labels[i] == p]
+            vp = np.empty(g)
+            for j, r in enumerate(grp):
+                c = wk[r]
+                pc = tuple(c[i] for i in axes)
+                vp[j] = var[pc] if pc in var else plan.block_plans[
+                    int(block_of[c[axes[0]]])].marginal_variance(pc)
+            parts.append((m.sum(axis=tuple(i + 1 for i in range(nd)
+                                           if i not in axes), keepdims=True),
+                          vp.reshape((g,) + (1,) * nd),
+                          int(np.prod([shape[i] for i in axes]))))
+        den = n ** (k - 1)
+        grads = []                  # d target / d part p
+        for p in range(k):
+            gp = np.ones((g,) + shape)
+            for q, (pt, _, _) in enumerate(parts):
+                if q != p:
+                    gp = gp * pt
+            grads.append(gp / den)
+        target = grads[0] * parts[0][0]
+        g_t = -(k - 1) * target / n
+        v = g_t ** 2 * vt
+        for p, (_, vp, cp) in enumerate(parts):
+            v = v + grads[p] ** 2 * vp + 2 * grads[p] * g_t * vt / cp
+            for q, (_, _, cq) in enumerate(parts):
+                if q != p:
+                    v = v + grads[p] * grads[q] * vt / (cp * cq)
+        worst = max(worst, float(np.max(
+            np.abs(t.reshape(m.shape) - target) / np.sqrt(v))))
+    return worst
+
+
+def phase_dnc_parity(card):
+    """[dnc-parity]: d = 40, 8 disjoint groups of 5 attributes, all <=3-way
+    inside each group.  compare_with_monolithic's ratio within 1e-9 of 1;
+    the CompositeEngine and the MarginalEngine releases on the card each
+    within 6 sigma of every exact marginal; the fused kernel launched."""
+    from repro_torch.core import (CompositePlan, compare_with_monolithic,
+                                  select)
+    from repro_torch.data.tabular import mixture_marginals
+    from repro_torch.engine import MarginalEngine
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    wk = blocked_workload(40, 5, 3)
+    t0 = time.perf_counter()
+    rep = compare_with_monolithic(wk, 1.0)
+    secs = {"compare": time.perf_counter() - t0}
+    dnc = select(wk, 1.0, strategy="dnc")
+    mono = select(wk, 1.0, strategy="monolithic")
+    margs = mixture_marginals(wk.domain, mono.cliques, DNC_MASS, SEED)
+    eng = dnc.engine(device="cuda")
+    reset_chain_stats()
+    t0 = time.perf_counter()
+    tables, _ = eng.release(margs, cuda_gen())
+    torch.cuda.synchronize()
+    secs["composite release"] = time.perf_counter() - t0
+    counts = chain_stats()
+    rows = range(len(wk.cliques))
+    worst_d = sigma_dev(dnc, tables, margs, rows)
+    t0 = time.perf_counter()
+    mtables, _ = MarginalEngine(mono, device="cuda").release(margs, cuda_gen())
+    torch.cuda.synchronize()
+    secs["monolithic release"] = time.perf_counter() - t0
+    worst_m = sigma_dev(mono, mtables, margs, rows)
+    print(f"[dnc-parity] d=40, {len(wk.cliques)} marginals, "
+          f"{dnc.n_blocks} blocks, straddlers "
+          f"{dnc.decomposition.n_straddlers}; compare_with_monolithic ratio "
+          f"{rep['ratio']!r}, max rel marginal diff "
+          f"{rep['max_rel_marginal_diff']:.3e}; worst table composite "
+          f"{worst_d:.3f} sigma, monolithic {worst_m:.3f} sigma (bound 6); "
+          f"seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; launches {counts} | {card}")
+    if not (isinstance(dnc, CompositePlan) and abs(rep["ratio"] - 1) <= 1e-9
+            and rep["exact_partition"] == 1.0):
+        raise AssertionError(f"D&C left the monolithic optimum: {rep}")
+    if not (worst_d <= 6.0 and worst_m <= 6.0 and counts["fused_launches"]):
+        raise AssertionError("a d=40 release left 6 sigma or skipped the "
+                             "fused kernel")
+    return counts
+
+
+def phase_dnc_d500(card, child):
+    """[dnc-d500]: d = 500 all <=2-way, strategy="dnc" (SoV), released on
+    the card over mixture marginals; in-block and 1-way tables within 6
+    sigma of the exact marginal, straddlers within 6 sigma of the product of
+    their exact parts (``straddler_dev``; their distance from the exact
+    marginal printed in the proxy sigma), two releases from one
+    seed bit-identical, device ms by kernel, nonneg (cells >= 0, sums equal
+    to the pinned total) and synthesize(100,000)."""
+    from repro_torch.core import all_kway, select
+    from repro_torch.data.tabular import mixture_marginals
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    dom = mixed_domain(DNC_D)
+    wk = all_kway(dom, 2, include_lower=True)
+    secs = {}
+    t0 = time.perf_counter()
+    plan = select(wk, 1.0, strategy="dnc")
+    secs["select_dnc"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan.variances_array()
+    secs["variances_array"] = time.perf_counter() - t0
+    d = plan.decomposition
+    print(f"[dnc-d500] d={DNC_D} all <=2-way: {len(wk.cliques)} marginals, "
+          f"{plan.n_blocks} blocks, {d.n_straddlers} straddlers, composite "
+          f"closure {len(plan.cliques)} cliques; seconds: select_dnc "
+          f"{secs['select_dnc']:.3f}, variances_array "
+          f"{secs['variances_array']:.3f} | {card}")
+    print(f"[dnc-d500] the same select in a child process started with the "
+          f"smoke: workload "
+          f"{child['workload_s']:.3f} s, select {child['select_s']:.3f} s, "
+          f"peak host RSS {child['peak_gib']:.3f} GiB (after the imports "
+          f"{child['base_gib']:.3f} GiB) | {card}")
+    t0 = time.perf_counter()
+    exact = mixture_marginals(dom, list(dict.fromkeys(
+        list(plan.cliques) + list(wk.cliques))), DNC_MASS, SEED)
+    secs["marginals"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = plan.engine(device="cuda")
+    secs["engine"] = time.perf_counter() - t0
+    timed_engine(eng, secs)
+    assembly = []                   # host seconds of each straddler assembly
+
+    def timed_assemble(*a, _fn=eng._assemble, **k):
+        t = time.perf_counter()
+        out = _fn(*a, **k)
+        assembly.append(time.perf_counter() - t)
+        return out
+    eng._assemble = timed_assemble
+    reset_chain_stats()
+    t0 = time.perf_counter()
+    tables, _ = eng.release(exact, cuda_gen())
+    secs["release"] = time.perf_counter() - t0
+    counts = chain_stats()
+    secs = dict(secs)               # the first release's; later ones rewrite
+    inb = np.flatnonzero(d.row_block >= 0)
+    strad = np.flatnonzero(d.row_block < 0)
+    t0 = time.perf_counter()
+    worst = sigma_dev(plan, tables, exact, inb)
+    worst_s = sigma_dev(plan, tables, exact, strad) if strad.size else 0.0
+    worst_t = straddler_dev(plan, tables, exact, strad)
+    secs["check"] = time.perf_counter() - t0
+    cells = sum(dom.n_cells(wk.cliques[r]) for r in inb)
+    s_cells = sum(dom.n_cells(wk.cliques[r]) for r in strad)
+    all_cells = sum(dom.n_cells(c) for c in wk.cliques)
+    t0 = time.perf_counter()
+    again, _ = eng.release(exact, cuda_gen())
+    secs["second release"] = time.perf_counter() - t0
+    same = same_family(tables, again)
+    print(f"[dnc-d500] release seconds (measure and reconstruct of the "
+          f"first release): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; straddler assembly on the host {assembly[0]:.3f} (first "
+          f"release, its grouping built) and {assembly[1]:.3f} (second); "
+          f"worst in-block/1-way table {worst:.3f} sigma over {len(inb)} "
+          f"tables, {cells} cells (bound 6; {all_cells} cells in all the "
+          f"workload's tables); worst straddler {worst_t:.3f} sigma of the "
+          f"product of its exact parts over {len(strad)} tables, {s_cells} "
+          f"cells (bound 6), {worst_s:.3f} proxy sigma from the exact "
+          f"marginal (not gated); two releases from one seed bit-identical "
+          f"{same}; launches {counts} | {card}")
+    if not (worst <= 6.0 and worst_t <= 6.0 and same
+            and counts["fused_launches"] > 0):
+        raise AssertionError("the d=500 D&C release left 6 sigma, was not "
+                             "reproducible or skipped the fused kernel")
+    ms = kernel_ms_by_name(lambda: eng.release(exact, cuda_gen()))
+    print(f"[dnc-d500] device ms of one more release by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items()))
+          + f" | {card}")
+    post = {}
+    t0 = time.perf_counter()
+    nn, meas = eng.release(exact, cuda_gen(), postprocess="nonneg")
+    post["nonneg release"] = time.perf_counter() - t0
+    total = float(np.asarray(meas[()].omega).reshape(-1)[0])
+    neg = sum(int((t < 0).sum()) for t in nn.values())
+    off_in = max(abs(float(np.sum(nn[wk.cliques[r]])) - total)
+                 / np.spacing(total) for r in inb)
+    off_s = max((abs(float(np.sum(nn[wk.cliques[r]])) - total) / total
+                 for r in strad), default=0.0)
+    t0 = time.perf_counter()
+    recs = eng.synthesize(SYNTH_RECORDS, cuda_gen())
+    post["synthesize"] = time.perf_counter() - t0
+    sizes = np.asarray(dom.sizes)
+    ok_recs = (recs.shape == (SYNTH_RECORDS, DNC_D) and recs.min() >= 0
+               and bool(np.all(recs.max(axis=0) < sizes)))
+    print(f"[dnc-d500] nonneg: negative cells {neg}, worst in-block |sum - "
+          f"total| {off_in:.1f} ulp of the pinned total {total:.6f}, worst "
+          f"straddler rel {off_s:.3e}; synthesize({SYNTH_RECORDS}) "
+          f"{recs.shape} in range {ok_recs}; seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in post.items())
+          + f" | {card}")
+    if neg or off_in > 2 or off_s > 1e-9 or not ok_recs:
+        raise AssertionError("the d=500 nonneg release or its synthesis is "
+                             "off")
+    return counts
+
+
+def phase_dnc_d200_auto(card, r):
+    """[dnc-d200-auto]: d = 200 all <=3-way; select(strategy="auto") goes
+    past AUTO_DNC_NNZ and returns a CompositePlan.  Plan only, in a fresh
+    child process started with the smoke (``plan_in_child``: seconds and
+    peak RSS of the planner apart from the smoke's own phases)."""
+    from repro_torch.core.select import AUTO_DNC_NNZ
+    print(f"[dnc-d200-auto] d={DNC_AUTO_D} all <=3-way (a child process "
+          f"started with the smoke): "
+          f"{r['marginals']} marginals, estimated incidence {r['est']} "
+          f"(AUTO_DNC_NNZ {AUTO_DNC_NNZ}) -> CompositePlan {r['composite']}, "
+          f"{r['blocks']} blocks, {r['straddlers']} straddlers; seconds: "
+          f"workload {r['workload_s']:.3f}, select {r['select_s']:.3f}; peak "
+          f"host RSS {r['peak_gib']:.3f} GiB (after the imports "
+          f"{r['base_gib']:.3f} GiB) | {card}")
+    if not (r["est"] > AUTO_DNC_NNZ and r["composite"]):
+        raise AssertionError("strategy='auto' did not take the D&C route")
+
+
+def phase_sharded_adult(card, adult, plan, records, synth2_plan,
+                        synth2_records):
+    """[sharded-adult]: sharded tables on the card (group=None and a
+    one-rank NCCL group) equal the host tables; sharded_measure equals
+    MarginalEngine.measure bit for bit, its second call a cache hit;
+    corpus_marginal_release(postprocess="consistent") within 6 sigma; the
+    secure sharded measure on [secure-synth2] equals DiscreteEngine.measure
+    bit for bit."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core.accountant import PrivacyBudget
+    from repro_torch.data.tabular import marginals_from_records
+    from repro_torch.engine import (DiscreteEngine, MarginalEngine,
+                                    corpus_marginal_release,
+                                    sharded_marginals, sharded_measure)
+    from repro_torch.engine.sharded import _ENGINE_CACHE
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    secs = {}
+    host = marginals_from_records(adult, plan.cliques, records)
+    # The references the equalities compare against run outside the
+    # launch windows: a window holds the sharded path's own launches only.
+    m2 = MarginalEngine(plan, device="cuda").measure(host, cuda_gen())
+    s2 = DiscreteEngine(synth2_plan, device="cuda").measure(
+        marginals_from_records(synth2_plan.domain, synth2_plan.cliques,
+                               synth2_records), cuda_gen())
+    t0 = time.perf_counter()
+    tabs = sharded_marginals(adult, plan.cliques, records, device="cuda")
+    secs["sharded_marginals"] = time.perf_counter() - t0
+    eq_local = same_family(tabs, host)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.makedirs("build", exist_ok=True)
+    store = os.path.join("build", f"nccl_store_{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        t0 = time.perf_counter()
+        tabs_g = sharded_marginals(adult, plan.cliques, records,
+                                   group=dist.group.WORLD, device="cuda")
+        secs["sharded_marginals nccl"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):      # the store removes it when done
+            os.remove(store)
+    eq_group = same_family(tabs_g, host)
+    # Window 1: the sharded measures (plain twice, then secure).
+    reset_chain_stats()
+    t0 = time.perf_counter()
+    m1 = sharded_measure(plan, records, cuda_gen(), device="cuda")
+    secs["sharded_measure"] = time.perf_counter() - t0
+    hits = _ENGINE_CACHE.hits
+    t0 = time.perf_counter()
+    sharded_measure(plan, records, cuda_gen(), device="cuda")
+    secs["sharded_measure again"] = time.perf_counter() - t0
+    hit = _ENGINE_CACHE.hits == hits + 1
+    t0 = time.perf_counter()
+    s1 = sharded_measure(synth2_plan, synth2_records, cuda_gen(),
+                         secure=True, device="cuda")
+    secs["secure sharded_measure"] = time.perf_counter() - t0
+    measure_counts = chain_stats()
+    eq_meas = all(np.array_equal(m1[c].omega, m2[c].omega)
+                  for c in plan.cliques)
+    eq_secure = all(np.array_equal(s1[c].omega, s2[c].omega)
+                    for c in synth2_plan.cliques)
+    # Window 2: the corpus release.
+    budget = PrivacyBudget.from_zcdp(1.0)
+    reset_chain_stats()
+    t0 = time.perf_counter()
+    tables, var, report = corpus_marginal_release(
+        adult, plan.workload, records, budget, 1.0, cuda_gen(),
+        postprocess="consistent", device="cuda")
+    secs["corpus consistent"] = time.perf_counter() - t0
+    corpus_counts = chain_stats()
+    worst = max(float(np.abs(tables[c] - host[c]).max() / math.sqrt(var[c]))
+                for c in plan.workload.cliques)
+    print(f"[sharded-adult] {len(plan.cliques)} closure tables over "
+          f"{len(records)} records: sharded == host tables {eq_local}, under "
+          f"a one-rank NCCL group {eq_group}; sharded_measure == "
+          f"MarginalEngine.measure bit for bit {eq_meas}; second call a "
+          f"cache hit {hit}; corpus consistent worst table {worst:.3f} sigma "
+          f"(bound 6), budget report {report}; secure sharded_measure on "
+          f"Synth-10^{SYNTH_D} <=2-way ({len(synth2_records)} records) == "
+          f"DiscreteEngine.measure bit for bit {eq_secure}; seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; launches of the sharded measures {measure_counts}, of the "
+          f"corpus release {corpus_counts} | {card}")
+    if not (eq_local and eq_group and eq_meas and hit and worst <= 6.0
+            and eq_secure):
+        raise AssertionError("sharded measurement differs from the direct "
+                             "path")
+    for what, c in (("sharded measures", measure_counts),
+                     ("corpus release", corpus_counts)):
+        if not c["fused_launches"] + c["axis_launches"]:
+            raise AssertionError(f"the {what} launched no kernel: {c}")
+    return {f: measure_counts[f] + corpus_counts[f] for f in measure_counts}
+
+
+def phase_obs(card, plan, margs):
+    """[obs]: one Adult release traced to a JSONL file under build/: the
+    span tree holds engine.measure and engine.reconstruct with kernel.chain
+    children, the tables are the untraced ones bit for bit, and /metrics
+    holds the four shared families and the roofline gauges."""
+    from repro_torch.engine import MarginalEngine
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    from repro_torch.obs import REGISTRY, TRACER, parse_exposition
+    eng = MarginalEngine(plan, device="cuda")
+    eng.release(margs, cuda_gen())
+    secs = {"off": [], "on": []}
+    path = os.path.join("build", "obs_trace.jsonl")
+    reset_chain_stats()
+    for rnd in range(OBS_ROUNDS):
+        for label in ("off", "on") if rnd % 2 == 0 else ("on", "off"):
+            if label == "on":
+                if os.path.exists(path):
+                    os.remove(path)
+                TRACER.enable(path)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tables, _ = eng.release(margs, cuda_gen())
+            torch.cuda.synchronize()
+            secs[label].append(time.perf_counter() - t0)
+            if label == "on":
+                TRACER.disable()
+                traced = tables
+                with open(path) as fh:
+                    spans = [json.loads(ln) for ln in fh]
+                os.remove(path)
+            else:
+                plain = tables
+    counts = chain_stats()
+    by_id = {s["span"]: s for s in spans}
+    names = {}
+    for s in spans:
+        names[s["name"]] = names.get(s["name"], 0) + 1
+    parents = {}
+    for s in spans:
+        if s["name"] == "kernel.chain" and s["parent"] in by_id:
+            p = by_id[s["parent"]]["name"]
+            parents[p] = parents.get(p, 0) + 1
+    same = same_family(plain, traced)
+    fams = ("repro_engine_events_total", "repro_kernel_events_total",
+            "repro_engine_cache_events_total", "repro_kernel_launch_seconds",
+            "repro_chain_predicted_intensity", "repro_chain_smem_bytes",
+            "repro_chain_predicted_seconds")
+    text = REGISTRY.exposition()
+    parse_exposition(text)
+    missing = [f for f in fams if f"# TYPE {f} " not in text]
+    med = {k: float(np.median(v)) for k, v in secs.items()}
+    print(f"[obs] Adult release seconds, {OBS_ROUNDS} rounds alternated: "
+          f"tracing off median {med['off']:.3f} {[round(v, 3) for v in secs['off']]}, "
+          f"on median {med['on']:.3f} {[round(v, 3) for v in secs['on']]}; spans by "
+          f"name {names}; kernel.chain spans by parent {parents}; traced == "
+          f"untraced tables bit for bit {same}; /metrics {len(text)} bytes, "
+          f"families missing {missing} | {card}")
+    if not (same and not missing
+            and parents.get("engine.measure", 0) > 0
+            and parents.get("engine.reconstruct", 0) > 0):
+        raise AssertionError("the traced release or /metrics is incomplete")
+    return counts
+
+
+def phase_rplus_maxvar(card):
+    """[rplus-maxvar]: select_plus(..., "max_variance") on the card twice
+    (sigma bit-identical) and on the CPU route (loss within rel 5e-3: the
+    reference's own iterates wander by about +-0.2% of the loss), the
+    setting of tests/test_torch_plus.py (d = 2 range, lr 0.01, 3000
+    steps)."""
+    from repro_torch.core import Domain, all_kway
+    from repro_torch.core.plus import PlusSchema, select_plus
+    sizes, kinds = [4, 4], ["range", "range"]
+    wk = all_kway(Domain.create(sizes), 2, include_lower=True)
+
+    def run(dev):
+        schema = PlusSchema.create(Domain.create(sizes), kinds,
+                                   strategy_mode="hier", device=dev)
+        t0 = time.perf_counter()
+        p = select_plus(wk, schema, 1.0, "max_variance", steps=3000, lr=0.01,
+                        device=dev)
+        return p, time.perf_counter() - t0
+
+    (a, ta), (b, tb), (c, tc) = run("cuda"), run("cuda"), run("cpu")
+    same = bool(np.array_equal(a.sigma, b.sigma)
+                and a.loss_value == b.loss_value)
+    rel = abs(a.loss_value - c.loss_value) / c.loss_value
+    print(f"[rplus-maxvar] loss card {a.loss_value!r}, CPU {c.loss_value!r} "
+          f"(rel {rel:.3e}, bound 5e-3); two card calls bit-identical {same}; "
+          f"seconds card {ta:.3f} / {tb:.3f}, CPU {tc:.3f} | {card}")
+    if not (same and rel <= 5e-3):
+        raise AssertionError("RP+ max-variance on the card is not "
+                             "reproducible or left the CPU route")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -1513,6 +2060,10 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # The planners' peak RSS, each in a child started while this process is
+    # small: a forked child's peak starts at its parent's size.
+    planned = {"d500": plan_in_child(DNC_D, 2, "dnc"),
+               "d200": plan_in_child(DNC_AUTO_D, 3, "auto")}
     phase_build()
     rows = phase_kernels(card)
     phase_exact_edge(card)
@@ -1558,8 +2109,17 @@ def main() -> int:
         phase_release_synth(card, splan, mixture_marginals(
             synth, splan.cliques, 1e6, SEED)),
         phase_release_secure(card, synth2_eng, synth2_margs))
+    synth2_records = synthetic_records(synth, SYNTH2_RECORDS, SEED)
+    slice_counts = (
+        phase_dnc_parity(card), phase_dnc_d500(card, planned["d500"]),
+        phase_sharded_adult(card, adult, plan, synthetic_records(
+            adult, ADULT_RECORDS, SEED), synth2_eng.plan, synth2_records),
+        phase_obs(card, plan, adult_margs))
+    phase_dnc_d200_auto(card, planned["d200"])
+    phase_rplus_maxvar(card)
     counts = (adult_counts, synth_counts) + rplus_counts + (
-        tune_counts, bf16_counts) + secure_counts + release_counts
+        tune_counts, bf16_counts) + secure_counts + release_counts \
+        + slice_counts
     launches = {"fused_chain": sum(c["fused_launches"] - c["narrow_launches"]
                                    for c in counts),
                 "fused_chain_bf16": sum(c["bf16_launches"] for c in counts),

@@ -6,6 +6,10 @@ from .residual import (axis_coeff_vectors, p_coeff, sub_gram, sub_matrix,
 from .plantable import BasePlan, PlanTable, SigmaView, plan_table, sov_closed_form
 from .select import (Plan, select, select_convex, select_max_variance,
                      select_sum_of_variances, select_utility_constrained)
+from .partition import (DEFAULT_MAX_BLOCK, Decomposition, Partition,
+                        decompose, interaction_weights, partition_attributes)
+from .composite import (CompositePlan, allocate_budget,
+                        compare_with_monolithic, select_dnc)
 from .mechanism import (Measurement, draw_noise, exact_marginals_from_x,
                         measure, measure_np, measure_np_batched,
                         noise_offsets, pcost_of_plan, residual_answer,

@@ -36,6 +36,7 @@ from .mechanism import Measurement, signature_groups
 from .plantable import BasePlan, PlanTable, sov_closed_form
 from .reconstruct import subset_slot_region
 from .residual import sub_matrix, sub_pinv
+from .segment import Segments
 
 # ---------------------------------------------------------------------------
 # Basic (workload) matrices
@@ -321,11 +322,30 @@ def _maxvar_adam(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                  p: torch.Tensor, m: int, theta: torch.Tensor, tau0: float,
                  steps: int, lr: float) -> torch.Tensor:
     """The reference's smoothed max-variance Adam loop (``lax.scan`` there),
-    step by step in the same order: ``index_add_`` for ``segment_sum``."""
+    step by step in the same order.
+
+    The contraction ``var = segment_sum(vals * u[cols], rows)`` adds on the
+    CPU with ``index_add_``, in input order as JAX's ``segment_sum`` does.
+    On CUDA ``index_add_`` and the backward of the ``u[cols]`` gather add
+    with atomics in no fixed order, and the last iterate's loss depends on
+    that order by about the ±0.2% the reference's own iterates wander; so
+    the card contracts through :class:`~repro_torch.core.segment.Segments`
+    over ``rows`` and over ``cols``, forward and gradient alike: one input
+    gives the same σ bit for bit on every call.
+    """
+    if rows.device.type == "cuda":
+        rseg, cseg = Segments(rows, m), Segments(cols, theta.numel())
+
+        def contract(u):
+            return rseg.sum(vals * cseg.gather(u))
+    else:
+        def contract(u):
+            return torch.zeros(m, dtype=vals.dtype, device=vals.device
+                               ).index_add_(0, rows, vals * u[cols])
+
     def smooth_obj(th, tau):
         u = torch.exp(th)
-        var = torch.zeros(m, dtype=vals.dtype, device=vals.device).index_add_(
-            0, rows, vals * u[cols])
+        var = contract(u)
         L = tau * torch.logsumexp(var / tau, dim=0)
         return torch.log(torch.sum(p / u)) + torch.log(L)
 

@@ -20,8 +20,11 @@ workload, and every objective is segment-sums over them.
 The legacy dict/itertools coefficient path survives as ``_coefficients`` /
 ``legacy_*_sigmas``: the float64 oracles the tests compare the IR against.
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports it: divide-and-conquer planning (``strategy="dnc"``).
+Every entry point that takes ``strategy`` routes through
+:func:`_route_strategy`: ``"dnc"`` (or ``"auto"`` past :data:`AUTO_DNC_NNZ`
+incidence entries, or ``blocks=``/``max_block=``) plans by divide and
+conquer (:func:`repro_torch.core.composite.select_dnc`) and returns a
+:class:`~repro_torch.core.composite.CompositePlan`.
 """
 from __future__ import annotations
 
@@ -175,24 +178,37 @@ def legacy_maxvar_sigmas(workload: MarginalWorkload, pcost_budget: float = 1.0,
     return dict(zip(cl, map(float, u))), primal
 
 
-#: strategy="auto" would switch to divide-and-conquer past this estimated
+def _route_strategy(strategy: str, workload: MarginalWorkload, objective: str,
+                    pcost_budget, weights, blocks, max_block, kw):
+    """Resolve the ``strategy`` switch shared by all select entry points.
+
+    Returns a :class:`~repro_torch.core.composite.CompositePlan` when the
+    divide-and-conquer route is taken, ``None`` when the caller should run
+    the monolithic path.  ``"auto"`` stays monolithic whenever the closure
+    is comfortably in memory and switches to D&C only past
+    :data:`AUTO_DNC_NNZ` estimated incidence entries (or when ``blocks=`` /
+    ``max_block=`` ask for a split).
+    """
+    if strategy == "monolithic":
+        if blocks is not None or max_block is not None:
+            raise ValueError("blocks=/max_block= require strategy='dnc' "
+                             "(or 'auto')")
+        return None
+    if strategy == "auto":
+        est_nnz = sum(1 << len(c) for c in workload.cliques)
+        if est_nnz <= AUTO_DNC_NNZ and blocks is None and max_block is None:
+            return None
+    elif strategy != "dnc":
+        raise ValueError(f"unknown strategy {strategy!r}")
+    from .composite import select_dnc
+    return select_dnc(workload, pcost_budget, objective=objective,
+                      weights=weights, blocks=blocks, max_block=max_block,
+                      **kw)
+
+
+#: strategy="auto" switches to divide-and-conquer past this estimated
 #: closure-incidence size (the d=100 all-<=3-way headline is ~1.3M).
 AUTO_DNC_NNZ = 4_000_000
-
-
-def _check_strategy(strategy: str, workload: MarginalWorkload,
-                    blocks, max_block) -> None:
-    """Only the monolithic route is ported; the D&C route raises."""
-    if strategy == "monolithic" and blocks is None and max_block is None:
-        return
-    if strategy == "auto" and blocks is None and max_block is None:
-        est_nnz = sum(1 << len(c) for c in workload.cliques)
-        if est_nnz <= AUTO_DNC_NNZ:
-            return
-    elif strategy not in ("monolithic", "auto", "dnc"):
-        raise ValueError(f"unknown strategy {strategy!r}")
-    raise NotImplementedError("divide-and-conquer planning is not ported yet "
-                              "(ROADMAP queue 1, item 9)")
 
 
 def select_sum_of_variances(workload: MarginalWorkload, pcost_budget: float = 1.0,
@@ -206,7 +222,10 @@ def select_sum_of_variances(workload: MarginalWorkload, pcost_budget: float = 1.
     zero objective weight) get a vanishing budget sliver, computed overflow-safe
     (see :func:`repro_torch.core.plantable.sov_closed_form`).
     """
-    _check_strategy(strategy, workload, blocks, max_block)
+    routed = _route_strategy(strategy, workload, "sum_of_variances",
+                             pcost_budget, weights, blocks, max_block, {})
+    if routed is not None:
+        return routed
     table = plan_table(workload) if table is None else table
     v = table.sov_coeffs(weights)
     sig = sov_closed_form(table.p, v, pcost_budget)
@@ -361,7 +380,12 @@ def select_max_variance(workload: MarginalWorkload, pcost_budget: float = 1.0,
     :data:`AUTO_DEVICE_NNZ` incidence entries up and the host loop below.
     ``mu0`` warm-starts the dual ascent from ``plan.mu`` of an earlier plan.
     """
-    _check_strategy(strategy, workload, blocks, max_block)
+    routed = _route_strategy(strategy, workload, "max_variance", pcost_budget,
+                             weights, blocks, max_block,
+                             dict(iters=iters, tol=tol, backend=backend,
+                                  chunk=chunk, device=device))
+    if routed is not None:
+        return routed
     table = plan_table(workload) if table is None else table
     cw = table.weight_vector(weights, default_to_workload=True)
     c = float(pcost_budget)
@@ -409,7 +433,12 @@ def select_convex(workload: MarginalWorkload, pcost_budget: float = 1.0,
     (:class:`~repro_torch.core.segment.Segments`), so two calls on one
     device return the same plan bit for bit.
     """
-    _check_strategy(strategy, workload, blocks, max_block)
+    routed = _route_strategy(strategy, workload, "convex", pcost_budget,
+                             weights, blocks, max_block,
+                             dict(loss=loss, steps=steps, lr=lr, seed=seed,
+                                  device=device))
+    if routed is not None:
+        return routed
     table = plan_table(workload) if table is None else table
     v_lin = table.sov_coeffs(weights)       # historical default-1.0 weighting
     w = table.weight_vector(weights, default_to_workload=True)
@@ -480,8 +509,15 @@ def select(workload: MarginalWorkload, pcost_budget: float = 1.0,
     ``objective='convex'`` routes to :func:`select_convex`; pass the loss via
     ``loss=`` (a name or a positively 1-homogeneous torch-differentiable
     callable).  A callable ``objective`` is shorthand for the same thing.
-    ``strategy="auto"`` stays monolithic; the divide-and-conquer route it
-    takes past :data:`AUTO_DNC_NNZ` incidence entries is not ported.
+
+    ``strategy`` picks the planning route: ``"monolithic"`` builds one
+    PlanTable over the whole closure, ``"dnc"`` partitions the attributes
+    and plans each block independently
+    (:func:`repro_torch.core.composite.select_dnc`, returning a
+    :class:`~repro_torch.core.composite.CompositePlan`), and the default
+    ``"auto"`` stays monolithic until the closure would outgrow memory
+    (:data:`AUTO_DNC_NNZ` incidence entries).  ``blocks=`` / ``max_block=``
+    (forwarded to the partitioner) force the D&C route when given.
     """
     if callable(objective):
         return select_convex(workload, pcost_budget, loss=objective,

@@ -57,6 +57,7 @@ from repro_torch.core.reconstruct import reconstruct_all_batched, u_chain_factor
 from repro_torch.engine.engine import ChainRegistry, EngineStats, ReleaseServing
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
+from repro_torch.obs import TRACER
 from repro_torch.release import measured_integer_total
 
 # Integers below 2^24 are exact in float32, below 2^53 in float64.
@@ -241,6 +242,13 @@ class DiscreteEngine(ReleaseServing, ChainRegistry):
         seed-deterministic per source state.
         """
         self.stats.bump("measure_calls")
+        with TRACER.span("engine.measure").set(
+                engine="discrete", cliques=len(self.plan.cliques),
+                use_kernel=self.use_kernel):
+            return self._measure_impl(marginals, gen, _noise_override)
+
+    def _measure_impl(self, marginals, gen, _noise_override=None
+                      ) -> Dict[Clique, DiscreteMeasurement]:
         rng = as_np_rng(gen)
         out: Dict[Clique, DiscreteMeasurement] = {}
         for dims, cliques in self._groups.items():
@@ -293,9 +301,11 @@ class DiscreteEngine(ReleaseServing, ChainRegistry):
         """Algorithm 2 on the discrete measurements (drop-in ω): batched
         merged U-chains, shared with the continuous engine."""
         self.stats.bump("reconstruct_calls")
-        return reconstruct_all_batched(self.plan, measurements, cliques,
-                                       use_kernel=self.use_kernel,
-                                       device=self.device)
+        with TRACER.span("engine.reconstruct").set(
+                engine="discrete", use_kernel=self.use_kernel):
+            return reconstruct_all_batched(self.plan, measurements, cliques,
+                                           use_kernel=self.use_kernel,
+                                           device=self.device)
 
     # release()/synthesize() come from ReleaseServing; the secure path pins
     # the consistency fit to the *measured integer total*, so postprocessed

@@ -33,12 +33,29 @@ from repro_torch.kernels.autotune.tuner import (TunedConfig, autotune_mode,
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 from repro_torch.kernels.kron_matvec.fused import (config_launch, factor_shapes,
                                                    fused_chain_matvec)
+from repro_torch.obs import REGISTRY, TRACER, AtomicCounter
+from repro_torch.obs.naming import chain_label
 from repro_torch.release import (POSTPROCESS_MODES, postprocess_release,
                                  synthesize_records)
+from repro_torch.roofline.cost_model import CostModel, detect_device
+
+
+# Process-wide aggregate of every EngineStats bump, labeled by counter name —
+# the /metrics view of engine activity across all engines in the process
+# (per-engine values stay on each EngineStats instance).
+_ENGINE_EVENTS = REGISTRY.counter(
+    "repro_engine_events_total",
+    "Engine counter bumps aggregated across all engines", labels=("counter",))
 
 
 class EngineStats:
-    """Per-engine counters (plain integers).
+    """Per-engine counters, backed by the obs metrics registry.
+
+    Each field is an :class:`~repro_torch.obs.AtomicCounter`; field access
+    reads (``stats.measure_calls``) and level-sets
+    (``stats.measure_signatures = n``) like a plain attribute, and
+    :meth:`bump` increments atomically and mirrors the event into the global
+    ``repro_engine_events_total{counter=...}`` family for ``/metrics``.
 
     * measure/reconstruct_calls, measure/reconstruct_signatures
     * fused_chains / fallback_chains — chain planning outcome
@@ -49,31 +66,60 @@ class EngineStats:
       on the float64 host fallback)
     * postprocess_calls / synthesize_calls — releases postprocessed by
       :mod:`repro_torch.release`, and synthesize calls
+    * cache_hits / cache_misses — provenance from the engine cache
+      (:mod:`repro_torch.engine.sharded`)
     """
 
     _FIELDS = ("measure_calls", "reconstruct_calls",
                "measure_signatures", "reconstruct_signatures",
-               "fused_chains", "fallback_chains", "tuned_chains",
-               "compile_warmups", "device_h_groups", "exact_h_groups",
-               "host_y_groups", "postprocess_calls", "synthesize_calls")
+               "fused_chains", "fallback_chains", "compile_warmups",
+               "tuned_chains", "device_h_groups", "exact_h_groups",
+               "host_y_groups", "postprocess_calls", "synthesize_calls",
+               "cache_hits", "cache_misses")
 
-    __slots__ = _FIELDS
+    __slots__ = ("_cells",)
 
     def __init__(self, **initial):
-        for f in self._FIELDS:
-            setattr(self, f, int(initial.pop(f, 0)))
+        self._cells = {f: AtomicCounter(int(initial.pop(f, 0)))
+                       for f in self._FIELDS}
         if initial:
             raise TypeError(f"unknown EngineStats fields: {tuple(initial)}")
 
     def bump(self, name: str, n: int = 1) -> None:
-        setattr(self, name, getattr(self, name) + n)
+        """Atomically increment ``name`` and mirror it to /metrics."""
+        self._cells[name].inc(n)
+        _ENGINE_MIRRORED[name].inc(n)
 
     def to_dict(self) -> Dict[str, int]:
-        return {f: getattr(self, f) for f in self._FIELDS}
+        return {f: int(self._cells[f].value) for f in self._FIELDS}
 
     def __repr__(self) -> str:
         body = ", ".join(f"{k}={v}" for k, v in self.to_dict().items())
         return f"EngineStats({body})"
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, EngineStats):
+            return self.to_dict() == other.to_dict()
+        return NotImplemented
+
+
+def _stats_field(name: str) -> property:
+    def _get(self) -> int:
+        return int(self._cells[name].value)
+
+    def _set(self, v: int) -> None:
+        self._cells[name].set(v)
+
+    return property(_get, _set)
+
+
+for _f in EngineStats._FIELDS:
+    setattr(EngineStats, _f, _stats_field(_f))
+del _f
+
+# The family's child per counter, resolved once (a bump is on the hot path).
+_ENGINE_MIRRORED = {f: _ENGINE_EVENTS.labels(counter=f)
+                    for f in EngineStats._FIELDS}
 
 
 class ChainRegistry:
@@ -90,8 +136,8 @@ class ChainRegistry:
     is the launch the serving path will make.  ``role`` is the chain's
     duty: ``"measure"`` chains carry Gaussian noise and are planned at
     float32; ``"reconstruct"`` chains may take a tuned narrow operand type
-    (float32 accumulation).  The JAX package's roofline gauges
-    (``_publish_roofline``) wait for the port of ``obs/``.
+    (float32 accumulation).  Each new chain publishes its cost model
+    predictions as gauges (:meth:`_publish_roofline`).
     """
 
     _chain_plans: Dict[tuple, tuple]
@@ -123,6 +169,35 @@ class ChainRegistry:
             self.stats.bump("fused_chains" if fused else "fallback_chains")
             if cfg is not None:
                 self.stats.bump("tuned_chains")
+            self._publish_roofline(key, cp, batch)
+
+    def _publish_roofline(self, key: tuple, cp, batch: int) -> None:
+        """Export the chain's cost model predictions as gauges.
+
+        Predicted arithmetic intensity, shared-memory footprint and runtime
+        (:mod:`repro_torch.roofline.cost_model`, the row of the engine's
+        device) sit next to the measured ``repro_kernel_launch_seconds``
+        histogram under the same ``chain`` label.  The JAX package's VMEM
+        gauge (``repro_chain_vmem_bytes``) becomes the planned shared-memory
+        bytes of one block, ``repro_chain_smem_bytes``.
+        """
+        try:
+            cost = CostModel(detect_device(self.device)).chain_cost(cp, batch)
+        except Exception:   # the cost model is advisory; never fail planning
+            return
+        label = chain_label(key[0], batch, cp.compute_dtype)
+        REGISTRY.gauge(
+            "repro_chain_predicted_intensity",
+            "Roofline-predicted arithmetic intensity (FLOP/byte)",
+            labels=("chain",)).labels(chain=label).set(cost.intensity)
+        REGISTRY.gauge(
+            "repro_chain_smem_bytes",
+            "Planned shared-memory bytes per block of the fused chain kernel",
+            labels=("chain",)).labels(chain=label).set(cp.smem_bytes)
+        REGISTRY.gauge(
+            "repro_chain_predicted_seconds",
+            "Roofline-predicted single-launch runtime",
+            labels=("chain",)).labels(chain=label).set(cost.predicted_s)
 
     def _chain_allow_narrow(self, key: tuple) -> bool:
         """Reconstruct-role chains may serve at a tuned narrow dtype."""
@@ -277,17 +352,23 @@ class MarginalEngine(ReleaseServing, ChainRegistry):
                 gen: torch.Generator) -> Dict[Clique, Measurement]:
         """Algorithm 1 over the whole closure: one chain per signature."""
         self.stats.bump("measure_calls")
-        return measure(self.plan, marginals, gen, use_kernel=self.use_kernel,
-                       batched=True, dtype=self.dtype, device=self.device)
+        with TRACER.span("engine.measure").set(
+                engine="marginal", cliques=len(self.plan.cliques),
+                use_kernel=self.use_kernel):
+            return measure(self.plan, marginals, gen,
+                           use_kernel=self.use_kernel, batched=True,
+                           dtype=self.dtype, device=self.device)
 
     def reconstruct(self, measurements: Mapping[Clique, Measurement],
                     cliques: Optional[Sequence[Clique]] = None
                     ) -> Dict[Clique, np.ndarray]:
         """Algorithm 2 for the workload (or ``cliques``): batched merged chains."""
         self.stats.bump("reconstruct_calls")
-        return reconstruct_all_batched(self.plan, measurements, cliques,
-                                       use_kernel=self.use_kernel,
-                                       device=self.device)
+        with TRACER.span("engine.reconstruct").set(
+                engine="marginal", use_kernel=self.use_kernel):
+            return reconstruct_all_batched(self.plan, measurements, cliques,
+                                           use_kernel=self.use_kernel,
+                                           device=self.device)
 
     # ------------------------------------------------------------- introspect
     def variances(self) -> Dict[Clique, float]:

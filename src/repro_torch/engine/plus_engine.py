@@ -53,6 +53,7 @@ from repro_torch.kernels.kron_matvec._layout import resolve_device
 from repro_torch.kernels.kron_matvec.fused import (apply_epilogue,
                                                    fused_chain_matvec)
 from repro_torch.kernels.kron_matvec.stats import CHAIN_STATS
+from repro_torch.obs import TRACER
 
 
 def expand_range_axis(t: torch.Tensor, axis: int, n: int) -> torch.Tensor:
@@ -202,6 +203,12 @@ class PlusEngine(ReleaseServing, ChainRegistry):
         is a ``torch.Generator`` on the engine's device.
         """
         self.stats.bump("measure_calls")
+        with TRACER.span("engine.measure").set(
+                engine="plus", cliques=len(self.plan.cliques),
+                use_kernel=self.use_kernel):
+            return self._measure_impl(marginals, gen)
+
+    def _measure_impl(self, marginals, gen) -> Dict[Clique, Measurement]:
         z_all = self._draw(gen)
         np_dtype = _NP_DTYPES[self.dtype]
         out: Dict[Clique, Measurement] = {}
@@ -229,6 +236,12 @@ class PlusEngine(ReleaseServing, ChainRegistry):
         per signature group, with prefix/range W_i applied implicitly.
         Returns float32 host arrays in ``w_range``/``w_prefix`` row order."""
         self.stats.bump("reconstruct_calls")
+        with TRACER.span("engine.reconstruct").set(
+                engine="plus", use_kernel=self.use_kernel):
+            return self._reconstruct_impl(measurements, cliques)
+
+    def _reconstruct_impl(self, measurements, cliques=None
+                          ) -> Dict[Clique, np.ndarray]:
         groups = (self._reconstruct_groups if cliques is None
                   else plus_signature_groups(self.schema, cliques))
         out: Dict[Clique, np.ndarray] = {}

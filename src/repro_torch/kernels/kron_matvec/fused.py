@@ -43,12 +43,16 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.obs import REGISTRY, TRACER
+from repro_torch.obs.naming import chain_label
 
 from .._build import load
 from ._layout import device_factor, normalize_factor
@@ -67,6 +71,25 @@ _OPERANDS = {"float32": (torch.float32, 4, 0),
              "bfloat16": (torch.bfloat16, 2, 1),
              "float16": (torch.float16, 2, 2)}
 _NARROW_COUNTER = {"bfloat16": "bf16_launches", "float16": "fp16_launches"}
+
+# Host dispatch time of one chain call, labeled like the roofline gauges
+# (obs/naming.py).  CUDA launches are asynchronous and nothing here waits for
+# the card, so this is the wrapper's host time (planning, packing, queuing),
+# not the kernel's device time, as in the JAX package.
+_LAUNCH_SECONDS = REGISTRY.histogram(
+    "repro_kernel_launch_seconds",
+    "Host dispatch time of one kron-chain call (launch queued, not "
+    "device time)",
+    labels=("chain",),
+    buckets=(1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 0.1, 0.3, 1.0))
+
+
+@lru_cache(maxsize=4096)
+def _launch_series(in_dims: Tuple[int, ...], batch: int, compute_dtype: str):
+    """(chain label, its ``repro_kernel_launch_seconds`` child), resolved
+    once per chain shape."""
+    label = chain_label(in_dims, batch, compute_dtype)
+    return label, _LAUNCH_SECONDS.labels(chain=label)
 
 
 def dtype_name(dtype) -> str:
@@ -448,16 +471,26 @@ def fused_chain_matvec(factors: Sequence, x: torch.Tensor, dims: Sequence[int],
         if not n_epi:
             return x[0] if flat_in else x
         y = apply_epilogue(x, plan.out_dims, plan.epilogue)
-    elif not fused:
-        CHAIN_STATS.inc("fallback_chains")
-        y = _fallback_per_axis(s_facs, x, plan.in_dims)
-        y = apply_epilogue(y, plan.out_dims, plan.epilogue)
-    else:
-        CHAIN_STATS.inc("fused_chains")
-        if x.device.type == "cpu":
-            y = fused_chain_matvec_plain(s_facs, x, plan.in_dims,
-                                         plan.epilogue, plan.compute_dtype)
+        CHAIN_STATS.inc("epilogue_axes", n_epi)
+        return y[0] if flat_in else y
+    t0 = time.monotonic()
+    label, seconds = _launch_series(plan.in_dims, b, plan.compute_dtype)
+    sp = TRACER.span("kernel.chain")
+    if sp:
+        sp.set(chain=label, fused=fused, rows=plan.rows,
+               compute_dtype=plan.compute_dtype, smem_bytes=plan.smem_bytes)
+    with sp:
+        if not fused:
+            CHAIN_STATS.inc("fallback_chains")
+            y = _fallback_per_axis(s_facs, x, plan.in_dims)
+            y = apply_epilogue(y, plan.out_dims, plan.epilogue)
         else:
-            y = _launch(plan, s_facs, x.contiguous())
+            CHAIN_STATS.inc("fused_chains")
+            if x.device.type == "cpu":
+                y = fused_chain_matvec_plain(s_facs, x, plan.in_dims,
+                                             plan.epilogue, plan.compute_dtype)
+            else:
+                y = _launch(plan, s_facs, x.contiguous())
     CHAIN_STATS.inc("epilogue_axes", n_epi)
+    seconds.observe(time.monotonic() - t0)
     return y[0] if flat_in else y

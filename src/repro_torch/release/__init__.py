@@ -15,10 +15,13 @@ IR / residual coordinates and never on the contingency table:
 
 The engines reach it through ``engine.release(..., postprocess=...)`` and
 ``engine.synthesize(...)`` on :class:`~repro_torch.engine.engine.MarginalEngine`,
-:class:`~repro_torch.engine.plus_engine.PlusEngine` and the secure
-:class:`~repro_torch.engine.discrete_engine.DiscreteEngine`.  The JAX
-package's ``release.postprocess`` trace span and its sharded
-``corpus_marginal_release(..., postprocess=...)`` route are not ported.
+:class:`~repro_torch.engine.plus_engine.PlusEngine`, the secure
+:class:`~repro_torch.engine.discrete_engine.DiscreteEngine` and the
+divide-and-conquer :class:`~repro_torch.engine.composite.CompositeEngine`,
+and the sharded route through
+``repro_torch.engine.corpus_stats.corpus_marginal_release(...,
+postprocess=...)``.  Each postprocess call is one ``release.postprocess``
+trace span.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 
 from repro_torch.core.domain import Clique
 from repro_torch.core.plantable import BasePlan
+from repro_torch.obs import TRACER
 
 from .consistency import (ConsistencyOperator, ConsistentRelease,
                           dense_wls_oracle, precision_weights,
@@ -65,16 +69,21 @@ def postprocess_release(plan: BasePlan, tables: Mapping[Clique, np.ndarray],
     backend's CG and projection.
     """
     if mode == "consistent":
-        cons = solve_consistency(plan, tables, weights=weights,
-                                 fix_total=total, tol=tol, maxiter=maxiter,
-                                 backend=backend, device=device,
-                                 use_kernel=use_kernel)
-        return cons.marginals()
+        with TRACER.span("release.postprocess").set(mode=mode,
+                                                    tables=len(tables)):
+            cons = solve_consistency(plan, tables, weights=weights,
+                                     fix_total=total, tol=tol,
+                                     maxiter=maxiter, backend=backend,
+                                     device=device, use_kernel=use_kernel)
+            return cons.marginals()
     if mode == "nonneg":
-        return nonneg_release(plan, tables, total=total, weights=weights,
-                              mw_rounds=mw_rounds, tol=tol, maxiter=maxiter,
-                              backend=backend, device=device,
-                              use_kernel=use_kernel)
+        with TRACER.span("release.postprocess").set(mode=mode,
+                                                    tables=len(tables),
+                                                    mw_rounds=mw_rounds):
+            return nonneg_release(plan, tables, total=total, weights=weights,
+                                  mw_rounds=mw_rounds, tol=tol,
+                                  maxiter=maxiter, backend=backend,
+                                  device=device, use_kernel=use_kernel)
     raise ValueError(f"postprocess mode must be one of {POSTPROCESS_MODES}, "
                      f"got {mode!r}")
 

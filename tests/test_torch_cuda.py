@@ -679,3 +679,83 @@ def test_kernels_copy_each_factor_once_and_never_serve_a_stale_one(cuda):
         assert _rel(got, fused_chain_matvec_plain(moved, x, dims)) < REL
         assert not torch.equal(got, first)
     _layout.clear_device_factors()
+
+
+def test_rplus_maxvar_bit_identical_over_two_calls(cuda):
+    """RP+ max-variance on the card adds in an order the data fix: two calls
+    give the same sigma bit for bit.  Its loss is within rel 5e-3 of the CPU
+    route's: the last iterate's loss depends on the order of addition by
+    about the +-0.2% the reference's own iterates wander (ROADMAP)."""
+    sizes, kinds = [4, 4], ["range", "range"]
+    wk = all_kway(Domain.create(sizes), 2, include_lower=True)
+
+    def run(dev):
+        schema = PlusSchema.create(Domain.create(sizes), kinds,
+                                   strategy_mode="hier", device=dev)
+        return select_plus(wk, schema, 1.0, "max_variance", steps=3000,
+                           lr=0.01, device=dev)
+
+    a, b = run(cuda), run(cuda)
+    assert np.array_equal(a.sigma, b.sigma)
+    assert a.loss_value == b.loss_value
+    cpu = run("cpu")
+    assert a.loss_value == pytest.approx(cpu.loss_value, rel=5e-3)
+
+
+def _composite_case():
+    from repro_torch.core import select_dnc
+    from repro_torch.data.tabular import synthetic_records
+    sizes = [5, 3, 4, 2, 6, 3, 2, 4]
+    cl = [()] + [(i,) for i in range(8)] + [
+        (0, 1), (1, 2), (0, 2), (0, 1, 2), (3, 4), (4, 5), (3, 5),
+        (6, 7), (2, 6), (1, 4)]
+    wk = MarginalWorkload(Domain.create(sizes), tuple(cl))
+    plan = select_dnc(wk, 2.0, blocks=[[0, 1, 2], [3, 4, 5], [6, 7]])
+    recs = synthetic_records(wk.domain, 3000, seed=5)
+    return plan, recs
+
+
+def test_composite_release_on_card_matches_cpu_route(cuda):
+    """The card's CompositeEngine measurements, reconstructed on the card
+    and by the CPU route: the same tables to float32; two card releases
+    from one seed are identical; in-block tables within 6 sigma."""
+    from repro_torch.data.tabular import marginals_from_records
+    plan, recs = _composite_case()
+    assert plan.decomposition.n_straddlers == 2
+    margs = marginals_from_records(plan.domain, plan.cliques, recs)
+    card, host = plan.engine(device=cuda), plan.engine(device="cpu")
+    reset_chain_stats()
+    tables, meas = card.release(margs, torch.Generator(cuda).manual_seed(3))
+    assert chain_stats()["fused_launches"] > 0
+    want = host.reconstruct(meas)
+    for c in plan.workload.cliques:
+        w = np.asarray(want[c], np.float64)
+        assert np.abs(np.asarray(tables[c], np.float64) - w).max() <= \
+            1e-5 * max(1.0, np.abs(w).max()), c
+    again, _ = card.release(margs, torch.Generator(cuda).manual_seed(3))
+    assert all(np.array_equal(again[c], tables[c]) for c in tables)
+    exact = marginals_from_records(plan.domain, plan.workload.cliques, recs)
+    var = plan.workload_variances()
+    row_block = plan.decomposition.row_block
+    for r, c in enumerate(plan.workload.cliques):
+        if row_block[r] >= 0:
+            assert np.abs(tables[c] - exact[c]).max() <= \
+                6 * math.sqrt(var[c]), c
+
+
+def test_sharded_tables_on_card_equal_cpu_tables(cuda):
+    from repro_torch.data.tabular import synthetic_records
+    from repro_torch.engine import sharded_marginals, sharded_measure
+    dom = Domain.create([100, 100, 99, 85, 9, 7, 2, 2])
+    cliques = all_kway(dom, 3, include_lower=True).closure()
+    recs = synthetic_records(dom, 20000, seed=2)
+    got = sharded_marginals(dom, cliques, recs, device=cuda)
+    want = sharded_marginals(dom, cliques, recs, device="cpu")
+    assert all(np.array_equal(got[c], want[c]) for c in cliques)
+    plan = select_sum_of_variances(all_kway(dom, 2, include_lower=True), 1.0)
+    eng = plan.engine(device=cuda)
+    m1 = sharded_measure(plan, recs, torch.Generator(cuda).manual_seed(1),
+                         device=cuda)
+    m2 = eng.measure(sharded_marginals(dom, plan.cliques, recs, device=cuda),
+                     torch.Generator(cuda).manual_seed(1))
+    assert all(np.array_equal(m1[c].omega, m2[c].omega) for c in plan.cliques)

@@ -99,7 +99,11 @@ def test_port_imports_neither_jax_nor_repro():
             " repro_torch.core.discrete, repro_torch.engine.discrete_engine,"
             " repro_torch.core.segment, repro_torch.release,"
             " repro_torch.release.consistency, repro_torch.release.nonneg,"
-            " repro_torch.release.synth;"
+            " repro_torch.release.synth, repro_torch.obs,"
+            " repro_torch.obs.metrics, repro_torch.obs.trace,"
+            " repro_torch.obs.naming, repro_torch.core.partition,"
+            " repro_torch.core.composite, repro_torch.engine.composite,"
+            " repro_torch.engine.sharded, repro_torch.engine.corpus_stats;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),

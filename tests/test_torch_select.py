@@ -26,9 +26,10 @@ from repro.core.select import legacy_maxvar_sigmas as jax_legacy_maxvar
 from repro.core.select import legacy_sov_sigmas as jax_legacy_sov
 
 from repro_torch.convert import plan_arrays, plan_from_arrays
-from repro_torch.core import (Domain, MarginalWorkload, PlanTable, all_kway,
-                              closure, pcost_of_plan, select, select_convex,
-                              select_max_variance, select_sum_of_variances,
+from repro_torch.core import (CompositePlan, Domain, MarginalWorkload,
+                              PlanTable, all_kway, closure, pcost_of_plan,
+                              select, select_convex, select_max_variance,
+                              select_sum_of_variances,
                               select_utility_constrained)
 from repro_torch.core.select import (_maxvar_eval_fp64, legacy_maxvar_sigmas,
                                      legacy_sov_sigmas)
@@ -160,8 +161,8 @@ def test_select_dispatch_and_unported_routes():
                                device="cpu").objective == "max_variance"
     assert isinstance(select_sum_of_variances(wk).engine(
         secure=True, device="cpu"), DiscreteEngine)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        select_sum_of_variances(wk, strategy="dnc")
+    assert isinstance(select_sum_of_variances(wk, strategy="dnc"),
+                      CompositePlan)
     with pytest.raises(ValueError):
         select_sum_of_variances(wk, strategy="nope")
     with pytest.raises(ValueError):
