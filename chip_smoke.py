@@ -103,7 +103,16 @@ Phases, in order; any failure exits non-zero:
    CompositePlan (plan only; seconds, peak host RSS).
 22. [rplus-maxvar] RP+ max-variance on the card twice (sigma bit-identical)
    and on the CPU (loss within rel 5e-3).
-23. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+23. [serve-adult] the release server (repro_torch.serve) at a service's
+   size: 8 tenants with their own Adult <=3-way plans, rho and 48,842
+   seeded records, 16 requests drained as one fused batch on both kernels;
+   measurements and tables bit for bit against measure()/reconstruct and a
+   max_batch=1 drain, 7 sigma over the 16 releases' 3.4e8 cells (the
+   releases past 6 sigma counted), budget refusal, nonneg + synthesis, RP+ and
+   secure tenants on the solo path, ledger replay, /healthz, /metrics ==
+   /stats; wall seconds, requests/s, p50/p99 and device ms by kernel.
+24. [serve-cli] python -m repro_torch.launch.serve --once in a child process.
+25. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
 
@@ -2040,6 +2049,331 @@ def phase_rplus_maxvar(card):
                              "reproducible or left the CPU route")
 
 
+SERVE_TENANTS = 8      # [serve-adult]: tenants, each its own plan and rho
+SERVE_PER_TENANT = 2   # requests a tenant in the batched drain
+# 16 Adult releases hold 3.4e8 cells: at 6 sigma about 0.7 cells would
+# exceed the bound by chance (this phase's seeds read 6.49 on an NVIDIA
+# H100), at 7 sigma 9e-4 -- [synth]'s reason for 7 sigma over 1.6e8 cells.
+SERVE_K_SIGMA = 7.0
+
+
+def http_get(url):
+    """(status, body) of a GET on the smoke's own stats server."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def prefilled_drain(srv, requests):
+    """Prefill a paused server with ``requests``, resume it and wait for
+    every result: (results, wall seconds from resume to the last one)."""
+    srv.pause()
+    futs = [srv.submit(r) for r in requests]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.resume()
+    res = [f.result(900) for f in futs]
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_serve_adult(card, adult):
+    """[serve-adult]: the release server at a service's size.  8 tenants,
+    each its own Adult <=3-way plan, rho and 48,842 seeded records, built by
+    repro_torch.launch.serve.build_server; 16 requests (2 a tenant, explicit
+    seeds) prefilled on a paused server with max_batch=16 and drained as one
+    batch, inside one launch window.  Gates: every result batched in a batch
+    of 16; the fused measure's chain calls equal those of one request's
+    measure; batched_launch_groups equal the plan's signature count; both
+    kernels launched; every measurement equal to measure() on its seed and
+    every table to engine.reconstruct of it, bit for bit; every table within
+    7 sigma (SERVE_K_SIGMA); the same requests at max_batch=1 bit-identical; a small-rho
+    tenant refused with its exact remaining budget; nonneg then synthesis
+    charging nothing; an RP+ range tenant and a secure tenant on the solo
+    path within their sigma; the ledger replayed to the same spend;
+    /healthz 200, /metrics agreeing with /stats, /stats holding kernels
+    and autotune."""
+    from repro_torch.core import all_kway, select_sum_of_variances
+    from repro_torch.core.accountant import BudgetExhausted
+    from repro_torch.core.mechanism import (measure, pcost_of_plan,
+                                            signature_groups)
+    from repro_torch.core.plus import PlusSchema, select_plus
+    from repro_torch.core.domain import Domain
+    from repro_torch.data.tabular import (marginals_from_records,
+                                          synthetic_records)
+    from repro_torch.engine import multi as multi_mod
+    from repro_torch.engine import sharded_marginals
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    from repro_torch.launch.serve import build_server
+    from repro_torch.obs import parse_exposition
+    from repro_torch.serve import (BudgetLedger, ReleaseRequest,
+                                   ReleaseServer, start_stats_http)
+    secs = {}
+    os.makedirs("build", exist_ok=True)
+    paths = [os.path.join("build", f"serve_{name}_{os.getpid()}.jsonl")
+             for name in ("ledger", "ledger_seq")]
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)
+    # Each tenant's own rho: the drains below, and the profiler's retakes.
+    rhos = [10.0 + t for t in range(SERVE_TENANTS)]
+    t0 = time.perf_counter()
+    srv = build_server(paths[0], n_tenants=SERVE_TENANTS, rho=rhos,
+                       max_batch=SERVE_TENANTS * SERVE_PER_TENANT, kway=3,
+                       device="cuda")
+    secs["build_server"] = time.perf_counter() - t0
+    httpd = None
+    try:
+        tenants = srv.tenants()
+        plans = {t: srv._sessions[t].plan for t in tenants}
+        plan0 = plans[tenants[0]]
+        t0 = time.perf_counter()
+        margs = {t: sharded_marginals(adult, plans[t].cliques,
+                                      synthetic_records(adult, ADULT_RECORDS,
+                                                        i), device="cuda")
+                 for i, t in enumerate(tenants)}
+        secs["marginals"] = time.perf_counter() - t0
+        requests = [ReleaseRequest(tenant=t, marginals=margs[t],
+                                   seed=1000 + SERVE_PER_TENANT * i + r)
+                    for i, t in enumerate(tenants)
+                    for r in range(SERVE_PER_TENANT)]
+        n_req = len(requests)
+        # One request's measure, outside the window: its chain calls.
+        st0 = chain_stats()
+        measure(plan0, margs[tenants[0]], cuda_gen(1000), device="cuda")
+        st1 = chain_stats()
+        solo_calls = sum(st1[k] - st0[k]
+                         for k in ("fused_chains", "fallback_chains"))
+        groups = len(signature_groups(adult, plan0.cliques))
+        # The window: one batched drain of all requests.  The fused measure's
+        # chain calls are counted at measure_multi's chain entry.
+        calls = [0]
+        real = multi_mod.fused_chain_matvec
+
+        def counting(*a, **k):
+            calls[0] += 1
+            return real(*a, **k)
+
+        multi_mod.fused_chain_matvec = counting
+        try:
+            groups_before = srv.stats.batched_launch_groups
+            reset_chain_stats()
+            batched, secs["batched drain"] = prefilled_drain(srv, requests)
+            counts = chain_stats()
+        finally:
+            multi_mod.fused_chain_matvec = real
+        drain_groups = srv.stats.batched_launch_groups - groups_before
+        lat = {t: srv.stats.tenant(t).to_dict() for t in tenants}
+        all_batched = all(r.batched and r.batch_size == n_req
+                          for r in batched)
+        # Every result against measure() on its seed and reconstruct of it.
+        t0 = time.perf_counter()
+        eq_meas = eq_tab = True
+        worsts = []
+        for r, req in zip(batched, requests):
+            plan = plans[req.tenant]
+            eng = srv.pool.engine_for(req.tenant, plan, device="cuda")
+            direct = measure(plan, req.marginals, cuda_gen(req.seed),
+                             device="cuda")
+            eq_meas &= all(np.array_equal(r.measurements[c].omega,
+                                          direct[c].omega)
+                           for c in plan.cliques)
+            again = eng.reconstruct(direct)
+            eq_tab &= all(np.array_equal(r.tables[c], again[c])
+                          for c in plan.workload.cliques)
+            worsts.append(check_tables(plan, r.tables, req.marginals,
+                                       SERVE_K_SIGMA))
+        secs["checks"] = time.perf_counter() - t0
+        # The same requests, one at a time (max_batch=1, the same pool).
+        seq_srv = ReleaseServer(BudgetLedger(paths[1]), max_batch=1,
+                                pool=srv.pool, device="cuda").start()
+        try:
+            for t in tenants:
+                seq_srv.register_tenant(t, plans[t], rho=rhos[0])
+            seq, secs["sequential drain"] = prefilled_drain(seq_srv, requests)
+            seq_lat = {t: seq_srv.stats.tenant(t).to_dict() for t in tenants}
+        finally:
+            seq_srv.stop()
+            seq_srv.ledger.close()
+        eq_seq = (not any(r.batched for r in seq)) and all(
+            all(np.array_equal(a.tables[c], b.tables[c]) for c in a.tables)
+            for a, b in zip(batched, seq))
+        del seq
+        # Device ms of one more batched drain, by kernel.
+        ms = kernel_ms_by_name(lambda: prefilled_drain(srv, requests))
+        # A tenant whose rho admits 1.5 releases: the second is refused with
+        # the exact remaining budget, and nothing is charged for it.
+        per = pcost_of_plan(plan0)
+        srv.register_tenant("tenant-poor", plan0, pcost=1.5 * per)
+        srv.request_sync(ReleaseRequest(tenant="tenant-poor",
+                                        marginals=margs[tenants[0]], seed=1),
+                         timeout=600)
+        spent = srv.ledger.spent("tenant-poor")
+        try:
+            srv.request_sync(ReleaseRequest(tenant="tenant-poor",
+                                            marginals=margs[tenants[0]]),
+                             timeout=600)
+            refused = None
+        except BudgetExhausted as exc:
+            refused = exc
+        refusal_ok = (refused is not None
+                      and refused.remaining_pcost
+                      == srv.ledger.remaining("tenant-poor")
+                      and abs(refused.remaining_pcost - 0.5 * per) <= 1e-9
+                      and srv.ledger.spent("tenant-poor") == spent)
+        # Solo paths: a small plain tenant (nonneg, then synthesis), an RP+
+        # range tenant and a secure tenant.
+        small = Domain.create([5, 5, 5])
+        sp = select_sum_of_variances(all_kway(small, 2, include_lower=True),
+                                     1.0)
+        sm = marginals_from_records(small, sp.cliques,
+                                    synthetic_records(small, 2000, seed=3))
+        srv.register_tenant("tenant-small", sp, rho=10.0)
+        nn = srv.request_sync(ReleaseRequest(tenant="tenant-small",
+                                             marginals=sm, seed=5,
+                                             postprocess="nonneg"))
+        spent_small = srv.ledger.spent("tenant-small")
+        syn = srv.request_sync(ReleaseRequest(tenant="tenant-small",
+                                              kind="synthesis",
+                                              n_records=10000, seed=6))
+        synth_ok = (all(float(t.min()) >= 0 for t in nn.tables.values())
+                    and syn.records.shape == (10000, small.n_attrs)
+                    and syn.pcost_charged == 0.0
+                    and srv.ledger.spent("tenant-small") == spent_small)
+        rdom = Domain.create([16, 8, 6],
+                             kinds=["numeric", "numeric", "categorical"])
+        schema = PlusSchema.create(rdom, ["range", "prefix", "identity"],
+                                   strategy_mode="hier", device="cuda")
+        rp = select_plus(all_kway(rdom, 2, include_lower=True), schema, 1.0,
+                         device="cuda")
+        rm = marginals_from_records(rdom, rp.cliques,
+                                    synthetic_records(rdom, 5000, seed=4))
+        srv.register_tenant("tenant-range", rp, rho=10.0)
+        rr = srv.request_sync(ReleaseRequest(tenant="tenant-range",
+                                             kind="range", marginals=rm,
+                                             seed=7))
+        worst_range = check_plus_tables(rp, rr.tables, rm, 6.0)
+        srv.register_tenant("tenant-secure", sp, rho=10.0, secure=True)
+        sr = srv.request_sync(ReleaseRequest(tenant="tenant-secure",
+                                             marginals=sm, seed=8))
+        seng = srv.pool.engine_for("tenant-secure", sp, secure=True,
+                                   device="cuda")
+        worst_secure = check_tables(sigma_bar_plan(sp, seng), sr.tables, sm,
+                                    6.0)
+        solo_ok = not (nn.batched or rr.batched or sr.batched)
+        # Replay, HTTP.
+        replay = BudgetLedger(paths[0])
+        replay_ok = all(replay.spent(t) == srv.ledger.spent(t)
+                        for t in srv.ledger.tenants) \
+            and set(replay.tenants) == set(srv.ledger.tenants)
+        replay.close()
+        httpd, port = start_stats_http(srv)
+        base = f"http://127.0.0.1:{port}"
+        health, _ = http_get(f"{base}/healthz")
+        _, body = http_get(f"{base}/metrics")
+        parsed = parse_exposition(body)
+        _, body = http_get(f"{base}/stats")
+        stats = json.loads(body)
+        req_total = parsed["repro_serve_requests_total"]
+        http_ok = (health == 200 and "kernels" in stats
+                   and "autotune" in stats
+                   and parsed["repro_serve_batches_total"][""]
+                   == stats["batches"]
+                   and all(req_total.get(f'tenant="{t}",outcome="completed"',
+                                         0) == s["completed"]
+                           for t, s in stats["tenants"].items())
+                   and all(parsed["repro_ledger_charges_total"][
+                       f'tenant="{t}"'] == led["charges"]
+                           and parsed["repro_ledger_pcost_spent"][
+                       f'tenant="{t}"'] == led["pcost_spent"]
+                           for t, led in stats["ledger"].items()))
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+        srv.stop()
+        srv.ledger.close()
+        for path in paths:
+            if os.path.exists(path):
+                os.remove(path)
+    bw, sw = secs["batched drain"], secs["sequential drain"]
+    pct = {k: (float(np.median([v[t][k] for t in tenants])),
+               max(v[t][k] for t in tenants))
+           for v in (lat,) for k in ("p50_ms", "p99_ms")}
+    seq_pct = {k: (float(np.median([seq_lat[t][k] for t in tenants])),
+                   max(seq_lat[t][k] for t in tenants))
+               for k in ("p50_ms", "p99_ms")}
+    print(f"[serve-adult] {SERVE_TENANTS} tenants x {SERVE_PER_TENANT} "
+          f"requests, Adult <=3-way ({len(plan0.cliques)} closure cliques, "
+          f"{sum(adult.n_cells(c) for c in plan0.cliques)} cells a release): "
+          f"batched drain {bw:.3f} s ({n_req / bw:.2f} requests/s), "
+          f"sequential (max_batch=1) {sw:.3f} s ({n_req / sw:.2f} "
+          f"requests/s), {sw / bw:.2f}x; latency ms (median of the tenants' "
+          f"p50, largest p99) batched {pct['p50_ms'][0]:.1f} / "
+          f"{pct['p99_ms'][1]:.1f}, sequential {seq_pct['p50_ms'][0]:.1f} / "
+          f"{seq_pct['p99_ms'][1]:.1f} | {card}")
+    print(f"[serve-adult] all batched in one batch of {n_req} {all_batched}; "
+          f"fused measure chain calls {calls[0]} (one request's measure "
+          f"{solo_calls}); batched_launch_groups {drain_groups} (signatures "
+          f"{groups}); measurements == measure() bit for bit {eq_meas}; "
+          f"tables == reconstruct bit for bit {eq_tab}; == max_batch=1 "
+          f"{eq_seq}; worst table {max(worsts):.3f} sigma (bound "
+          f"{SERVE_K_SIGMA}; releases past 6 sigma "
+          f"{sum(w > 6.0 for w in worsts)} of {n_req}); refusal with "
+          f"the exact remaining pcost {refusal_ok} "
+          f"({refused.remaining_pcost if refused else None!r}); nonneg then "
+          f"synthesis charges nothing {synth_ok}; solo RP+ range "
+          f"{worst_range:.3f} sigma, secure {worst_secure:.3f} sigma-bar "
+          f"(bound 6), solo {solo_ok}; ledger replay {replay_ok}; HTTP "
+          f"(healthz {health}, /metrics == /stats) {http_ok}")
+    print(f"[serve-adult] seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + "; device ms of one more batched drain by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items()))
+          + f"; launches {counts}")
+    if not (all_batched and calls[0] == solo_calls and drain_groups == groups
+            and eq_meas and eq_tab and eq_seq and refusal_ok and synth_ok
+            and solo_ok and replay_ok and http_ok):
+        raise AssertionError("[serve-adult] a gate failed (see above)")
+    if not (counts["fused_launches"] > 0 and counts["axis_launches"] > 0):
+        raise AssertionError(f"the batched drain skipped a kernel: {counts}")
+    return counts
+
+
+def phase_serve_cli(card):
+    """[serve-cli]: ``python -m repro_torch.launch.serve --once`` in a child
+    process (2 Adult <=2-way tenants, 2 requests each) exits 0 and prints
+    its summary."""
+    os.makedirs("build", exist_ok=True)
+    ledger = os.path.join("build", f"serve_cli_{os.getpid()}.jsonl")
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--once",
+         "--tenants", "2", "--requests", "2", "--port", "0", "--ledger",
+         ledger], capture_output=True, text=True, timeout=600, env=env,
+        cwd=root)
+    wall = time.perf_counter() - t0
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    summary = [ln for ln in out.stdout.splitlines()
+               if ln.startswith("[serve] demo traffic:")]
+    print(f"[serve-cli] exit {out.returncode} in {wall:.1f} s: "
+          f"{summary[0] if summary else 'no summary'} | {card}")
+    if out.returncode != 0 or not summary:
+        raise AssertionError(f"launch.serve failed:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    if "registered on cuda" not in out.stdout:
+        raise AssertionError("launch.serve did not serve on the card")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -2117,9 +2451,11 @@ def main() -> int:
         phase_obs(card, plan, adult_margs))
     phase_dnc_d200_auto(card, planned["d200"])
     phase_rplus_maxvar(card)
+    serve_counts = phase_serve_adult(card, adult)
+    phase_serve_cli(card)
     counts = (adult_counts, synth_counts) + rplus_counts + (
         tune_counts, bf16_counts) + secure_counts + release_counts \
-        + slice_counts
+        + slice_counts + (serve_counts,)
     launches = {"fused_chain": sum(c["fused_launches"] - c["narrow_launches"]
                                    for c in counts),
                 "fused_chain_bf16": sum(c["bf16_launches"] for c in counts),

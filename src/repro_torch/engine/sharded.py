@@ -65,7 +65,12 @@ def _dtype_name(dtype) -> str:
 
 
 def _device_name(device) -> str:
-    return str(torch.device("cuda" if device is None else device))
+    """The cache key's device: ``None``, ``"cuda"`` and ``"cuda:<current>"``
+    name one device, so they are one key (``"cuda:<current>"``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
 
 
 class _EngineCache:

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 import time
 from dataclasses import asdict, dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -99,16 +100,28 @@ def chain_key(device_kind: str, dims: Sequence[int],
 
 
 # Per-process registry: chain_key -> TunedConfig, the decisions in effect.
-_REGISTRY: Dict[str, TunedConfig] = {}
+# A server's worker inserts keys (the key holds the exact batch) while its
+# HTTP thread snapshots them for /stats, so writes and the snapshot's copy
+# hold one lock; a lookup is one dict read and takes none.
+_REGISTRY: Dict[str, TunedConfig] = {}      # guarded-by: _REGISTRY_LOCK
+_REGISTRY_LOCK = threading.Lock()
+
+
+def _register(key: str, cfg: TunedConfig) -> None:
+    with _REGISTRY_LOCK:
+        _REGISTRY[key] = cfg
 
 
 def reset_registry() -> None:
-    _REGISTRY.clear()
+    with _REGISTRY_LOCK:
+        _REGISTRY.clear()
 
 
 def registry_snapshot(device=None) -> dict:
+    with _REGISTRY_LOCK:
+        entries = list(_REGISTRY.items())
     return {"mode": autotune_mode(), "device": detect_device(device).kind,
-            "entries": {k: cfg.as_dict() for k, cfg in _REGISTRY.items()}}
+            "entries": {k: cfg.as_dict() for k, cfg in entries}}
 
 
 def _rows_lattice(batch: int, fit: int, default: int) -> List[int]:
@@ -190,7 +203,7 @@ def tune_chain(factors: Sequence, dims: Sequence[int], batch: int = 1,
     cands = _dtype_candidates(dtypes)
     cfg = _tune(fshapes, dims, batch, epi, cands, spec, mode, factors, dev)
     key = chain_key(spec.kind, dims, fshapes, epi, batch, cands)
-    _REGISTRY[key] = cfg
+    _register(key, cfg)
     if persist:
         TuningCache(spec.kind).put(key, cfg.as_dict())
     return cfg
@@ -263,7 +276,7 @@ def resolve_shapes(fshapes, dims: Sequence[int], batch: int,
         cfg = TunedConfig.from_dict({**blob, "source": "cache"})
     else:
         cfg = _tune(fshapes, dims, batch, epi, cands, spec, "model")
-    _REGISTRY[key] = cfg
+    _register(key, cfg)
     return cfg
 
 

@@ -9,6 +9,7 @@ CPU, and it never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Optional
 
@@ -59,9 +60,12 @@ def _may_be_identity(f: np.ndarray) -> bool:
 
 
 # Factors on the card, by content: (device, dtype, shape, bytes) -> tensor.
-_DEVICE_FACTORS: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+# A server's worker and a thread registering a tenant both reach the cache,
+# so every read and write of it and of its byte count holds _FACTORS_LOCK.
+_DEVICE_FACTORS: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()  # guarded-by: _FACTORS_LOCK
 _DEVICE_FACTORS_MAX_BYTES = 64 << 20   # host bytes of the keys held at most
-_device_factor_bytes = 0
+_device_factor_bytes = 0               # guarded-by: _FACTORS_LOCK
+_FACTORS_LOCK = threading.Lock()
 
 
 def device_factor(a: np.ndarray, dtype: torch.dtype,
@@ -78,23 +82,25 @@ def device_factor(a: np.ndarray, dtype: torch.dtype,
     global _device_factor_bytes
     a = np.ascontiguousarray(a)
     key = (str(device), dtype, a.dtype.str, a.shape, a.tobytes())
-    t = _DEVICE_FACTORS.get(key)
-    if t is not None:
-        _DEVICE_FACTORS.move_to_end(key)
+    with _FACTORS_LOCK:
+        t = _DEVICE_FACTORS.get(key)
+        if t is not None:
+            _DEVICE_FACTORS.move_to_end(key)
+            return t
+        t = torch.from_numpy(a.copy()).to(dtype).to(device)
+        _DEVICE_FACTORS[key] = t
+        _device_factor_bytes += a.nbytes
+        while _device_factor_bytes > _DEVICE_FACTORS_MAX_BYTES \
+                and len(_DEVICE_FACTORS) > 1:
+            old, _ = _DEVICE_FACTORS.popitem(last=False)
+            _device_factor_bytes -= len(old[-1])
         return t
-    t = torch.from_numpy(a.copy()).to(dtype).to(device)
-    _DEVICE_FACTORS[key] = t
-    _device_factor_bytes += a.nbytes
-    while _device_factor_bytes > _DEVICE_FACTORS_MAX_BYTES \
-            and len(_DEVICE_FACTORS) > 1:
-        old, _ = _DEVICE_FACTORS.popitem(last=False)
-        _device_factor_bytes -= len(old[-1])
-    return t
 
 
 def clear_device_factors() -> None:
     """Drop every kept factor (their device memory returns to the caching
     allocator)."""
     global _device_factor_bytes
-    _DEVICE_FACTORS.clear()
-    _device_factor_bytes = 0
+    with _FACTORS_LOCK:
+        _DEVICE_FACTORS.clear()
+        _device_factor_bytes = 0

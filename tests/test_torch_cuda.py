@@ -759,3 +759,71 @@ def test_sharded_tables_on_card_equal_cpu_tables(cuda):
     m2 = eng.measure(sharded_marginals(dom, plan.cliques, recs, device=cuda),
                      torch.Generator(cuda).manual_seed(1))
     assert all(np.array_equal(m1[c].omega, m2[c].omega) for c in plan.cliques)
+
+
+def test_measure_multi_on_card_equals_measure_bit_for_bit(cuda):
+    """Three tenants' plans over chains that go to both kernels: one
+    measure_multi call returns every item's measure() bits, though its
+    stacked batches (and so the tuner's routes and rows) differ."""
+    from repro_torch.data.tabular import (marginals_from_records,
+                                          synthetic_records)
+    from repro_torch.engine.multi import measure_multi
+    dom = Domain.create([100, 100, 99, 85, 9, 7, 2, 2])
+    wk = all_kway(dom, 3, include_lower=True)
+    plans = [select_sum_of_variances(wk, 1.0) for _ in range(3)]
+    margs = [marginals_from_records(dom, p.cliques,
+                                    synthetic_records(dom, 5000, seed=t))
+             for t, p in enumerate(plans)]
+    want = [measure(p, m, torch.Generator(cuda).manual_seed(t))
+            for t, (p, m) in enumerate(zip(plans, margs))]
+    reset_chain_stats()
+    got = measure_multi([(p, m, torch.Generator(cuda).manual_seed(t))
+                         for t, (p, m) in enumerate(zip(plans, margs))])
+    st = chain_stats()
+    assert st["fused_launches"] > 0 and st["axis_launches"] > 0
+    for w, g in zip(want, got):
+        assert all(np.array_equal(w[c].omega, g[c].omega) for c in w)
+
+
+def test_release_server_on_card(cuda, tmp_path):
+    """A paused batch of three tenants on the card: fused, bit-identical to
+    the same requests at max_batch=1; the pool keys None, "cuda" and
+    "cuda:<current>" as one device."""
+    from repro_torch.data.tabular import (marginals_from_records,
+                                          synthetic_records)
+    from repro_torch.serve import (BudgetLedger, EnginePool, ReleaseRequest,
+                                   ReleaseServer)
+    dom = Domain.create([5, 5, 5])
+    plans = [select_sum_of_variances(all_kway(dom, 2, include_lower=True),
+                                     1.0) for _ in range(3)]
+    margs = [marginals_from_records(dom, p.cliques,
+                                    synthetic_records(dom, 2000, seed=t))
+             for t, p in enumerate(plans)]
+
+    def drain(max_batch):
+        srv = ReleaseServer(BudgetLedger(str(tmp_path / f"l{max_batch}"),
+                                         fsync=False),
+                            max_batch=max_batch).start()
+        try:
+            for t, p in enumerate(plans):
+                srv.register_tenant(f"t{t}", p, rho=10.0)
+            srv.pause()
+            futs = [srv.submit(ReleaseRequest(tenant=f"t{t}",
+                                              marginals=margs[t], seed=t))
+                    for t in range(3)]
+            srv.resume()
+            return [f.result(120) for f in futs]
+        finally:
+            srv.stop()
+            srv.ledger.close()
+
+    bat, seq = drain(8), drain(1)
+    assert all(r.batched for r in bat) and not any(r.batched for r in seq)
+    for a, b in zip(bat, seq):
+        assert all(np.array_equal(a.tables[c], b.tables[c]) for c in a.tables)
+    pool = EnginePool()
+    idx = torch.cuda.current_device()
+    e = pool.engine_for("a", plans[0])
+    assert pool.engine_for("a", plans[0], device="cuda") is e
+    assert pool.engine_for("a", plans[0], device=f"cuda:{idx}") is e
+    assert len(pool.cache) == 1 and e.device.type == "cuda"

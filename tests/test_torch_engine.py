@@ -103,7 +103,11 @@ def test_port_imports_neither_jax_nor_repro():
             " repro_torch.obs.metrics, repro_torch.obs.trace,"
             " repro_torch.obs.naming, repro_torch.core.partition,"
             " repro_torch.core.composite, repro_torch.engine.composite,"
-            " repro_torch.engine.sharded, repro_torch.engine.corpus_stats;"
+            " repro_torch.engine.sharded, repro_torch.engine.corpus_stats,"
+            " repro_torch.engine.multi, repro_torch.serve,"
+            " repro_torch.serve.ledger, repro_torch.serve.pool,"
+            " repro_torch.serve.stats, repro_torch.serve.server,"
+            " repro_torch.launch, repro_torch.launch.serve;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
