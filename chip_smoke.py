@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
    ResidualPlanner+ 'cumsum' epilogue), and the narrow kernel (bf16 and
    fp16 operands, float32 sums) on Synth-10^100's 3-way reconstruct chain
    against its narrow plain version (rel 1e-2 / 2e-3 of max|plain|), its
-   yardstick an einsum on operands of the same type.  Then check a small
+   yardstick an einsum on operands of the same type; and HDMM's universe
+   chains (one row of 10^8 cells through m = 1 ones rows on the per-axis
+   kernel, one of 100 cells on the fused one).  Then check a small
    release against the float64 host oracles.
 3. Adult, all <=3-way marginals: select_sum_of_variances -> MarginalEngine
    (device="cuda") -> release, marginals from seeded synthetic records.
@@ -112,7 +114,21 @@ Phases, in order; any failure exits non-zero:
    secure tenants on the solo path, ledger replay, /healthz, /metrics ==
    /stats; wall seconds, requests/s, p50/p99 and device ms by kernel.
 24. [serve-cli] python -m repro_torch.launch.serve --once in a child process.
-25. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+25. [hdmm-synth] the paper's HDMM baseline (Tables 2-4) on Synth-10^d, all
+   <=3-way, d = 2, 6, 8: hdmm_marginals (host seconds), then
+   hdmm_measure_reconstruct's universe-sized chains on the kernels (the
+   fused one at d = 2, the per-axis one beyond) over the universe vector
+   of 48,842 seeded records; every answer within 6 sigma, the d = 8
+   squared errors in a 5 sigma chi-square band, device ms by kernel and
+   peak device memory; RP on the same records beside it (HDMM's RMSE >=
+   RP's * 0.999, RP's equal to the SVD bound within 1e-9); d = 10 raises
+   MemoryError and allocates nothing (Table 3's wall).
+26. [hdmm-prefix] Tables 8-9: CPS, Adult and Loans <=3-way with prefix
+   numeric attributes: RP+ (sov) and hdmm_generalized RMSE, HDMM's max
+   variance, seconds; CPS (280,000 cells) released end to end by
+   PlusEngine and by HDMM on the per-axis kernel, 6 sigma; Adult and
+   Loans refused at HDMM's guard.
+27. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
 
@@ -310,9 +326,9 @@ def einsum_chain(factors, x, dims):
     """One torch.einsum call for the chain (timed as a yardstick only).
     x comes first so a left-to-right contraction is the per-axis chain;
     a None factor leaves its axis as it is."""
-    letters = "ijklmn"[:len(dims)]
+    letters = "ijklmnopqr"[:len(dims)]
     outs = "".join(i if f is None else o
-                   for f, i, o in zip(factors, letters, "abcdef"))
+                   for f, i, o in zip(factors, letters, "abcdefghst"))
     live = [(f, o, i) for f, o, i in zip(factors, outs, letters) if f is not None]
     spec = (f"z{letters}," + ",".join(f"{o}{i}" for _, o, i in live)
             + f"->z{outs}")
@@ -393,6 +409,14 @@ def phase_kernels(card):
          (100, 100, 100), 1, cumsum3, "axis"),
         ("kron_axis", "Adult (100,100,100) measure chain, 3 launches",
          [sub_matrix(100)] * 3, (100, 100, 100), 2, (), "axis"),
+        # HDMM's universe-sized chains ([hdmm-synth]): one row of 10^8
+        # cells through five m = 1 ones rows, and a universe of 100 cells
+        # that fits a block.
+        ("kron_axis", "HDMM Synth-10^8 3-way measure chain, 1 row of 10^8, "
+         "ones rows on 5 axes, 5 launches", [np.ones((1, 10))] * 5
+         + [None] * 3, (10,) * 8, 1, (), "axis"),
+        ("fused_chain", "HDMM Synth-10^2 1-way measure chain, 1 row of 100",
+         [np.ones((1, 10)), None], (10, 10), 1, (), "fused"),
     ] + narrow
     rows = []
     for name, label, facs, dims, batch, epi, route in cases:
@@ -420,6 +444,8 @@ def phase_kernels(card):
             bound_ms, t_mem, t_ops = 0.0, 0.0, 0.0
             cur = [batch] + list(dims)
             for axis, s in enumerate(s_facs, start=1):
+                if s is None:
+                    continue
                 m, n = s.shape
                 L, R = math.prod(cur[:axis]), math.prod(cur[axis + 1:])
                 nbytes = 4 * (L * n * R + m * n + L * m * R)
@@ -453,6 +479,11 @@ def phase_kernels(card):
                                              and st["epilogue_launches"] == 1):
             raise AssertionError(f"{label}: the epilogue was not in the "
                                  f"fused launch: {st}")
+        if label.startswith("HDMM") and not (
+                st["fused_launches" if route == "fused" else "axis_launches"]
+                and not st["axis_launches" if route == "fused"
+                           else "fused_launches"]):
+            raise AssertionError(f"{label}: not the {route} route: {st}")
         if epi and route == "axis" and not (st["fused_launches"] == 0
                                             and st["fallback_chains"] == 1
                                             and st["axis_launches"] == 3):
@@ -2374,6 +2405,285 @@ def phase_serve_cli(card):
         raise AssertionError("launch.serve did not serve on the card")
 
 
+HDMM_SYNTH_D = (2, 6, 8)   # [hdmm-synth]: Synth-10^d whose universe HDMM holds
+HDMM_WALL_D = 10           # ... and the first it refuses (paper Table 3)
+HDMM_CHI2_D = 8            # the d of the chi-square band and the profile
+# [hdmm-prefix]: the paper's Table 8 RP+ RMSE (<=3-way prefix, pcost 1) and
+# its numeric attributes (benchmarks/table6_9_rplus.py:20-24)
+PAPER8 = {"adult": 48.903, "cps": 8.392, "loans": 36.651}
+PREFIX_ATTRS = {"adult": (0, 1, 2, 3, 4), "cps": (0, 1), "loans": (0, 1, 2, 3)}
+
+
+def hdmm_variances(union, budget=1.0):
+    """sigma^2 of every HDMM answer, by sub-strategy: the Kronecker product
+    of the per-axis diag(W_i (A_i^T A_i)^+ W_i^T), over share * budget."""
+    out = []
+    for sub, share in zip(union.subs, union.shares):
+        v = np.ones(1)
+        for W, A in zip(sub.factors_W, sub.factors_A):
+            v = np.kron(v, np.diag(W @ np.linalg.pinv(A.T @ A) @ W.T))
+        out.append(v / (share * budget))
+    return out
+
+
+def universe_vector(domain, records):
+    """The universe vector of ``records`` on the card: one torch.bincount of
+    their flat cell indices (row-major, as the Kronecker chains read it)."""
+    rec = torch.as_tensor(records, device="cuda").long()
+    flat = torch.zeros(rec.shape[0], dtype=torch.long, device="cuda")
+    for i, n in enumerate(domain.sizes):
+        flat = flat * n + rec[:, i]
+    return torch.bincount(flat, minlength=domain.universe_size()).float()
+
+
+def hdmm_release(union, domain, x, exact, k_sigma=6.0):
+    """One hdmm_measure_reconstruct on the card (its launches counted from
+    0), every answer finite, of its shape and within k_sigma of ``exact``
+    (float64, by sub-strategy).  Returns (counts, facts): seconds, peak
+    device memory above what was held before, the worst answer in sigma,
+    the squared errors' sum, its expectation and variance, answers."""
+    from repro_torch.baselines.hdmm import hdmm_measure_reconstruct
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_chain_stats()
+    t0 = time.perf_counter()
+    answers = hdmm_measure_reconstruct(union, domain, x, cuda_gen(), 1.0,
+                                       device="cuda")
+    torch.cuda.synchronize()
+    facts = {"secs": time.perf_counter() - t0,
+             "peak": torch.cuda.max_memory_allocated() - held,
+             "held": held}
+    counts = chain_stats()
+    worst = sq = ev = var2 = 0.0
+    n = 0
+    for ans, var, want in zip(answers, hdmm_variances(union), exact):
+        got = ans.double().cpu().numpy()
+        if got.shape != want.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"an HDMM answer has shape {got.shape} (want "
+                                 f"{want.shape}) or non-finite values")
+        err = got - want
+        worst = max(worst, float(np.max(np.abs(err) / np.sqrt(var))))
+        sq += float(err @ err)
+        ev += float(var.sum())
+        var2 += float(var @ var)
+        n += err.size
+    facts.update(worst=worst, sq=sq, ev=ev, var2=var2, n=n)
+    if len(answers) != len(exact) or not worst <= k_sigma:
+        raise AssertionError(f"an HDMM answer is {worst:.2f} sigma from its "
+                             f"exact value (bound {k_sigma})")
+    return counts, facts
+
+
+def expect_hdmm_wall(union, domain, label):
+    """hdmm_measure_reconstruct raises MemoryError at the guard and leaves
+    the card's allocations as they were (nothing allocated, not even for a
+    moment)."""
+    from repro_torch.baselines.hdmm import hdmm_measure_reconstruct
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    try:
+        hdmm_measure_reconstruct(union, domain, np.zeros(1), cuda_gen(), 1.0,
+                                 device="cuda")
+    except MemoryError as exc:
+        msg = str(exc)
+    else:
+        raise AssertionError(f"{label}: HDMM did not refuse a "
+                             f"{domain.universe_size():.3g}-cell universe")
+    torch.cuda.synchronize()
+    if not (torch.cuda.memory_allocated() == held
+            and torch.cuda.max_memory_allocated() == held):
+        raise AssertionError(f"{label}: the refusal allocated on the card")
+    return msg
+
+
+def phase_hdmm_synth(card):
+    """[hdmm-synth] (paper Tables 2-4): Synth-10^d, all <=3-way, d in
+    HDMM_SYNTH_D.  hdmm_marginals (host seconds), then
+    hdmm_measure_reconstruct on the universe vector of 48,842 seeded
+    records (built on the card with torch.bincount): every answer within
+    6 sigma; at d = HDMM_CHI2_D the squared errors' sum within 5 sigma of
+    its chi-square expectation, and the device ms by kernel.  Beside it RP
+    (select_sum_of_variances with the RMSE-optimal cell weights ->
+    MarginalEngine.release, 6 sigma) on the same workload and records:
+    HDMM's analytic RMSE >= RP's * 0.999 and the SVD bound equal to RP's
+    RMSE within 1e-9 (Table 4).  d = HDMM_WALL_D raises MemoryError and
+    allocates nothing on the card (Table 3's wall).  HDMM's chains: the
+    fused kernel at d = 2, the per-axis kernel beyond."""
+    from repro_torch.baselines import hdmm_marginals
+    from repro_torch.baselines.hdmm import hdmm_measure_reconstruct
+    from repro_torch.baselines.svdb import svdb_rmse_marginals
+    from repro_torch.core import all_kway, select_sum_of_variances
+    from repro_torch.data.tabular import (marginals_from_records,
+                                          synth_domain, synthetic_records)
+    from repro_torch.engine import MarginalEngine
+    from repro_torch.kernels.kron_matvec.fused import plan_chain
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    counts = []
+    for d in HDMM_SYNTH_D + (HDMM_WALL_D,):
+        dom = synth_domain(10, d)
+        wk = all_kway(dom, min(3, d), include_lower=True)
+        t0 = time.perf_counter()
+        union = hdmm_marginals(wk)
+        t_sel = time.perf_counter() - t0
+        if d == HDMM_WALL_D:
+            msg = expect_hdmm_wall(union, dom, f"Synth-10^{d}")
+            print(f"[hdmm-synth] d={d}: hdmm_marginals {t_sel:.3f} s (host); "
+                  f"measure+reconstruct refused: MemoryError({msg!r}), "
+                  f"nothing allocated on the card")
+            continue
+        records = synthetic_records(dom, ADULT_RECORDS, SEED)
+        t0 = time.perf_counter()
+        x = universe_vector(dom, records)
+        torch.cuda.synchronize()
+        t_x = time.perf_counter() - t0
+        exact = marginals_from_records(dom, wk.cliques, records)
+        hd_counts, hd = hdmm_release(union, dom, x,
+                                     [exact[c] for c in wk.cliques])
+        # the fused kernel while a universe-sized row fits a block
+        route = "fused" if plan_chain(union.subs[0].factors_A,
+                                      dom.sizes).fused_ok else "axis"
+        on, off = (("fused_launches", "axis_launches") if route == "fused"
+                   else ("axis_launches", "fused_launches"))
+        if not (hd_counts[on] > 0 and hd_counts[off] == 0):
+            raise AssertionError(f"d={d}: HDMM's chains did not take the "
+                                 f"{route} route: {hd_counts}")
+        t0 = time.perf_counter()
+        plan = select_sum_of_variances(
+            wk, 1.0, {c: float(dom.n_cells(c)) for c in wk.cliques})
+        t_rp_sel = time.perf_counter() - t0
+        margs = marginals_from_records(dom, plan.cliques, records)
+        reset_chain_stats()
+        t0 = time.perf_counter()
+        tables, _ = MarginalEngine(plan, device="cuda").release(margs,
+                                                                cuda_gen())
+        torch.cuda.synchronize()
+        t_rp = time.perf_counter() - t0
+        rp_counts = chain_stats()
+        rp_worst = check_tables(plan, tables, margs, 6.0)
+        rp_sq = sum(float(((tables[c] - margs[c]) ** 2).sum())
+                    for c in wk.cliques)
+        hd_rmse, rp_rmse = union.rmse(1.0), plan.rmse()
+        svdb = svdb_rmse_marginals(wk)
+        print(f"[hdmm-synth] d={d}: {len(wk.cliques)} marginals, {hd['n']} "
+              f"answers; HDMM select {t_sel:.3f} s (host), universe vector "
+              f"{t_x:.3f} s, measure+reconstruct {hd['secs']:.3f} s, peak "
+              f"device memory {hd['peak'] / 2**30:.3f} GiB above the "
+              f"{hd['held'] / 2**30:.3f} GiB held (x among it); RP select "
+              f"{t_rp_sel:.3f} s, release {t_rp:.3f} s | {card}")
+        print(f"[hdmm-synth] d={d}: RMSE analytic HDMM {hd_rmse:.6f}, RP "
+              f"{rp_rmse:.6f}, SVD bound {svdb:.6f}; empirical HDMM "
+              f"{math.sqrt(hd['sq'] / hd['n']):.6f}, RP "
+              f"{math.sqrt(rp_sq / hd['n']):.6f}; worst HDMM {hd['worst']:.3f}"
+              f" sigma, RP {rp_worst:.3f} sigma; launches HDMM {hd_counts}")
+        if d == HDMM_CHI2_D:
+            band = 5 * math.sqrt(2 * hd["var2"])
+            print(f"[hdmm-synth] d={d}: squared errors {hd['sq']:.1f}, "
+                  f"expected {hd['ev']:.1f} +- {band:.1f} (5 sigma)")
+            if not abs(hd["sq"] - hd["ev"]) <= band:
+                raise AssertionError("HDMM's squared errors leave their "
+                                     "chi-square band")
+            ms = kernel_ms_by_name(lambda: hdmm_measure_reconstruct(
+                union, dom, x, cuda_gen(), 1.0, device="cuda"))
+            print(f"[hdmm-synth] d={d}: device ms of one more measure+"
+                  f"reconstruct by kernel: " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in sorted(ms.items())))
+        if not hd_rmse >= rp_rmse * 0.999:
+            raise AssertionError(f"d={d}: HDMM's RMSE {hd_rmse} beats RP's "
+                                 f"{rp_rmse} on marginals")
+        if not abs(svdb - rp_rmse) <= 1e-9:
+            raise AssertionError(f"d={d}: RP's RMSE {rp_rmse} is not the SVD "
+                                 f"bound {svdb}")
+        counts += [hd_counts, rp_counts]
+    return counts
+
+
+def phase_hdmm_prefix(card):
+    """[hdmm-prefix] (paper Tables 8-9): CPS, Adult and Loans, all <=3-way,
+    the numeric attributes prefix queries, the rest identity.  For each:
+    select_plus(..., "sov") RMSE (p-Identity strategies on the card),
+    hdmm_generalized's RMSE and max variance, the seconds of each, and the
+    paper's RP+ RMSE.  CPS's 280,000-cell universe is under HDMM's guard:
+    PlusEngine.release and hdmm_measure_reconstruct (per-axis kernel) on
+    48,842 seeded records, every answer of both within 6 sigma, and their
+    empirical RMSEs.  Adult and Loans raise MemoryError at the guard."""
+    from repro_torch.baselines import hdmm_generalized
+    from repro_torch.baselines.hdmm import OOM_GUARD_ELEMS
+    from repro_torch.core import all_kway
+    from repro_torch.core.kron import kron_matvec_np
+    from repro_torch.core.plus import PlusSchema, select_plus
+    from repro_torch.data.tabular import (adult_domain, cps_domain,
+                                          loans_domain, marginals_from_records,
+                                          synthetic_records)
+    from repro_torch.engine.plus_engine import PlusEngine
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    counts = []
+    for name, dom in (("cps", cps_domain()), ("adult", adult_domain()),
+                      ("loans", loans_domain())):
+        kinds = ["prefix" if i in PREFIX_ATTRS[name] else "identity"
+                 for i in range(dom.n_attrs)]
+        wk = all_kway(dom, 3, include_lower=True)
+        t0 = time.perf_counter()
+        schema = PlusSchema.create(dom, kinds, strategy_mode="auto",
+                                   device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plan = select_plus(wk, schema, 1.0, "sov", device="cuda")
+        t2 = time.perf_counter()
+        union = hdmm_generalized(wk, kinds, device="cuda")
+        t3 = time.perf_counter()
+        print(f"[hdmm-prefix] {name}: RP+ (sov) RMSE {plan.rmse():.3f} "
+              f"(paper {PAPER8[name]}), HDMM RMSE {union.rmse(1.0):.3f}, "
+              f"HDMM max variance {union.max_variance(1.0):.3f}; seconds: "
+              f"RP+ schema {t1 - t0:.3f}, RP+ select {t2 - t1:.3f}, HDMM "
+              f"select {t3 - t2:.3f} ({len(union.subs)} sub-strategies x "
+              f"{dom.n_attrs} axes on the host, p-Identity on the card)")
+        if dom.universe_size() > OOM_GUARD_ELEMS:
+            msg = expect_hdmm_wall(union, dom, name)
+            print(f"[hdmm-prefix] {name}: universe {dom.universe_size():.3g} "
+                  f"cells, measure+reconstruct refused: MemoryError({msg!r})")
+            continue
+        records = synthetic_records(dom, ADULT_RECORDS, SEED)
+        margs = marginals_from_records(dom, plan.cliques, records)
+        reset_chain_stats()
+        t0 = time.perf_counter()
+        tables, _ = PlusEngine(plan, device="cuda").release(margs, cuda_gen())
+        torch.cuda.synchronize()
+        t_rp = time.perf_counter() - t0
+        counts.append(chain_stats())
+        rp_worst = check_plus_tables(plan, tables, margs, 6.0)
+        rp_sq = rp_n = 0.0
+        for c in wk.cliques:
+            want = kron_matvec_np([schema.bases[i].W for i in c], margs[c],
+                                  dom.clique_sizes(c)) if c else margs[c]
+            rp_sq += float(((tables[c] - want) ** 2).sum())
+            rp_n += want.size
+        x_host = np.bincount(np.ravel_multi_index(records.T, dom.sizes),
+                             minlength=dom.universe_size()).astype(np.float64)
+        exact = [kron_matvec_np(sub.factors_W, x_host, dom.sizes)
+                 for sub in union.subs]
+        hd_counts, hd = hdmm_release(union, dom,
+                                     universe_vector(dom, records), exact)
+        counts.append(hd_counts)
+        print(f"[hdmm-prefix] {name}: {dom.universe_size()} cells; RP+ "
+              f"release {t_rp:.3f} s, worst {rp_worst:.3f} sigma, empirical "
+              f"RMSE {math.sqrt(rp_sq / rp_n):.3f}; HDMM measure+reconstruct "
+              f"{hd['secs']:.3f} s, peak device memory "
+              f"{hd['peak'] / 2**30:.3f} GiB, worst {hd['worst']:.3f} sigma, "
+              f"empirical RMSE {math.sqrt(hd['sq'] / hd['n']):.3f}; launches "
+              f"HDMM {hd_counts} | {card}")
+        if not (hd_counts["axis_launches"] > 0
+                and hd_counts["fused_launches"] == 0):
+            raise AssertionError(f"{name}: HDMM's chains did not take the "
+                                 f"per-axis route: {hd_counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -2453,9 +2763,10 @@ def main() -> int:
     phase_rplus_maxvar(card)
     serve_counts = phase_serve_adult(card, adult)
     phase_serve_cli(card)
+    baseline_counts = tuple(phase_hdmm_synth(card) + phase_hdmm_prefix(card))
     counts = (adult_counts, synth_counts) + rplus_counts + (
         tune_counts, bf16_counts) + secure_counts + release_counts \
-        + slice_counts + (serve_counts,)
+        + slice_counts + (serve_counts,) + baseline_counts
     launches = {"fused_chain": sum(c["fused_launches"] - c["narrow_launches"]
                                    for c in counts),
                 "fused_chain_bf16": sum(c["bf16_launches"] for c in counts),

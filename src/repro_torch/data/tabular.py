@@ -1,7 +1,7 @@
 """Tabular data plane: the paper's benchmark schemas + data generators.
 
 Domain sizes are the paper's exactly (§8): Adult (14 attrs, universe
-6.41e17) and Synth-n^d.  Accuracy metrics
+6.41e17), CPS (5 attrs), Loans (12 attrs), and Synth-n^d.  Accuracy metrics
 in the paper are data-independent, so synthetic data suffice for end-to-end
 runs.  The port's copy of ``repro.data.tabular``, plus
 :func:`mixture_marginals` for domains too wide to draw records for.
@@ -15,10 +15,20 @@ import numpy as np
 from repro_torch.core.domain import Clique, Domain
 
 ADULT_SIZES = [100, 100, 100, 99, 85, 42, 16, 15, 9, 7, 6, 5, 2, 2]
+CPS_SIZES = [100, 50, 7, 4, 2]
+LOANS_SIZES = [101, 101, 101, 101, 3, 8, 36, 6, 51, 4, 5, 15]
 
 
 def adult_domain() -> Domain:
     return Domain.create(ADULT_SIZES, names=[f"adult{i}" for i in range(14)])
+
+
+def cps_domain() -> Domain:
+    return Domain.create(CPS_SIZES, names=[f"cps{i}" for i in range(5)])
+
+
+def loans_domain() -> Domain:
+    return Domain.create(LOANS_SIZES, names=[f"loans{i}" for i in range(12)])
 
 
 def synth_domain(n: int, d: int, kind: str = "categorical") -> Domain:

@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.kron_matvec._layout import resolve_device
 from repro_torch.kernels.kron_matvec.fused import (dtype_name, factor_shapes,
                                                    fit_rows, plan_shapes)
 from repro_torch.roofline.cost_model import CostModel, DeviceSpec, detect_device
@@ -186,15 +187,14 @@ def tune_chain(factors: Sequence, dims: Sequence[int], batch: int = 1,
                persist: bool = True) -> TunedConfig:
     """Tune ONE chain group, register the winner and (``persist``) cache it.
 
-    ``device`` is where the chain runs (default: CUDA when there is a card);
-    ``spec`` overrides its cost-model row.  ``dtypes`` widens the candidates
+    ``device`` is where the chain runs (CUDA unless ``device="cpu"``; with
+    no card and no device it raises, as every entry point does); ``spec``
+    overrides its cost-model row.  ``dtypes`` widens the candidates
     beyond float32 (default: ``REPRO_KERNEL_COMPUTE_DTYPES``).  ``mode``
     overrides the environment's: ``"measure"`` times candidates on
     ``device``.
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    dev = resolve_device(device)
     spec = detect_device(dev) if spec is None else spec
     mode = autotune_mode() if mode is None else mode
     dims = tuple(int(d) for d in dims)
@@ -299,7 +299,9 @@ def pretune(chains: Sequence[tuple], device=None, mode: Optional[str] = None,
 
     ``chains`` holds ``(factors, dims, batch, epilogue)`` tuples; in
     ``measure`` mode this is where kernels are timed, outside any request.
+    ``device`` as in :func:`tune_chain`: CUDA unless ``device="cpu"``.
     """
+    device = resolve_device(device)
     return [tune_chain(factors, dims, batch=batch, epilogue=epilogue,
                        dtypes=dtypes, device=device, mode=mode, persist=True)
             for factors, dims, batch, epilogue in chains]

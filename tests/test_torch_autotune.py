@@ -541,3 +541,18 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         reconstruct_marginal_fast(plan, {}, (0, 1), use_kernel=True)
     assert detect_device() is DEVICE_TABLE["cpu"]
+
+
+def test_tuner_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    """tune_chain and pretune resolve a missing device as the engines do:
+    CUDA, which raises without a card (no quiet fall back to the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path))
+    facs = [np.ones((2, 3))]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune_chain(facs, (3,), batch=4, mode="model", persist=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretune([(facs, (3,), 4, None)], mode="model")
+    assert tune_chain(facs, (3,), batch=4, device="cpu", mode="model",
+                      persist=False).fused

@@ -827,3 +827,45 @@ def test_release_server_on_card(cuda, tmp_path):
     assert pool.engine_for("a", plans[0], device="cuda") is e
     assert pool.engine_for("a", plans[0], device=f"cuda:{idx}") is e
     assert len(pool.cache) == 1 and e.device.type == "cuda"
+
+
+@pytest.mark.parametrize("sizes,k,kinds,route", [
+    ([10, 10], 2, None, "fused"),
+    ([6, 5, 4, 3], 2, ["prefix", "identity", "identity", "range"], "fused"),
+    ([100, 50, 7, 4, 2], 2, ["prefix", "prefix", "identity", "identity",
+                             "identity"], "axis"),
+    ([10] * 7, 1, None, "axis"),          # a 10^7-cell universe, one row
+])
+def test_hdmm_measure_reconstruct_on_card_matches_cpu(cuda, sizes, k, kinds,
+                                                      route):
+    """HDMM's universe-sized chains on the kernels against the same chains'
+    plain versions (device="cpu"), fed the same standard normal vectors:
+    the fused kernel while the universe fits a block, the per-axis kernel
+    (m = 1 ones rows included) beyond."""
+    from repro_torch.baselines import hdmm_generalized, hdmm_marginals
+    from repro_torch.baselines.hdmm import _measure_reconstruct
+    wk = all_kway(Domain.create(sizes), k, include_lower=True)
+    union = hdmm_marginals(wk) if kinds is None else \
+        hdmm_generalized(wk, kinds, iters=50, device=cuda)
+    x = np.random.default_rng(0).integers(0, 5, wk.domain.universe_size())
+
+    def run(dev):
+        rng = np.random.default_rng(1)
+        return _measure_reconstruct(
+            union, wk.domain, torch.as_tensor(x, device=dev),
+            lambda m: torch.as_tensor(rng.standard_normal(m), device=dev),
+            0.5, torch.device(dev))
+
+    reset_chain_stats()
+    got = run("cuda")
+    torch.cuda.synchronize()
+    st = chain_stats()
+    if route == "fused":
+        assert st["fused_launches"] > 0 and st["axis_launches"] == 0
+    else:
+        assert st["axis_launches"] > 0 and st["fused_launches"] == 0
+    want = run("cpu")
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.float32
+        assert float((g.cpu() - w).abs().max()) <= REL * scale

@@ -107,7 +107,14 @@ def test_port_imports_neither_jax_nor_repro():
             " repro_torch.engine.multi, repro_torch.serve,"
             " repro_torch.serve.ledger, repro_torch.serve.pool,"
             " repro_torch.serve.stats, repro_torch.serve.server,"
-            " repro_torch.launch, repro_torch.launch.serve;"
+            " repro_torch.launch, repro_torch.launch.serve,"
+            " repro_torch.baselines.hdmm, repro_torch.baselines.svdb,"
+            " repro_torch.configs.adult_marginals, repro_torch.analysis,"
+            " repro_torch.analysis.astutils, repro_torch.analysis.findings,"
+            " repro_torch.analysis.registry, repro_torch.analysis.privacy,"
+            " repro_torch.analysis.locks, repro_torch.analysis.kernels,"
+            " repro_torch.analysis.driver, repro_torch.analysis.__main__;"
+            " repro_torch.analysis.kernel_limits();"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
