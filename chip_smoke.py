@@ -128,7 +128,18 @@ Phases, in order; any failure exits non-zero:
    variance, seconds; CPS (280,000 cells) released end to end by
    PlusEngine and by HDMM on the per-axis kernel, 6 sigma; Adult and
    Loans refused at HDMM's guard.
-27. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+27. [lm-serve] the LM plane's serving path (repro_torch.models): Qwen3-4B
+   and RecurrentGemma-2B at their published widths (seeded weights on the
+   card, float32, bf16 compute), 4 requests of 32 prompt tokens and 16
+   greedy tokens through examples/serve_lm_torch.py: init and prefill
+   seconds, decode tokens/s, peak device memory, the first request's
+   tokens; each decode step against the teacher-forced prefill at float32
+   (rel 1e-4) and bf16 (rel 3e-2, or the bf16 prefill's own distance from
+   float32 where larger) compute; two Qwen3-4B runs from one seed
+   give the same tokens; all ten architectures at reduced_config on the
+   card against the CPU (rel 1e-4). No kernel of the port runs here: the
+   reference's LM plane reaches no pl.pallas_call.
+28. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
 
@@ -2684,6 +2695,203 @@ def phase_hdmm_prefix(card):
     return counts
 
 
+# [lm-serve]: the LM plane's serving path at the published widths of one
+# dense model and of the larger sub-quadratic (hybrid) one, with
+# examples/serve_lm.py's traffic: 4 requests of 32 prompt tokens, 16 greedy
+# tokens each.
+LM_FULL = ("qwen3-4b", "recurrentgemma-2b")
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
+LM_F32_REL = 1e-4        # of max|logit|: decode vs teacher-forced prefill
+# the same at bf16 compute: [adult-bf16]'s bound, or the bf16 prefill's own
+# distance from the float32 prefill where that is larger (PERF.md, PR 21)
+LM_BF16_REL = 3e-2
+LM_CARD_CPU_REL = 1e-4   # of max|CPU logit|, float32, TF32 off
+LM_CARD_CPU_STEPS = 3
+
+
+def load_serve_example():
+    """examples/serve_lm_torch.py as a module: the user's serving loop."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "serve_lm_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lm_extend(model, batch, tok):
+    """``batch`` with ``tok`` (B, 1) appended as the decode step embeds it."""
+    out = dict(batch)
+    if model.cfg.frontend == "none":
+        out["tokens"] = torch.cat([batch["tokens"], tok.to(batch["tokens"].dtype)],
+                                  dim=1)
+    else:
+        out["embeds"] = torch.cat([batch["embeds"],
+                                   model.token_embeds(tok).to(batch["embeds"].dtype)],
+                                  dim=1)
+    return out
+
+
+def lm_consistency(model, batch, steps, ref32=None):
+    """Greedy decode of ``steps`` tokens; each step's logits against the
+    teacher-forced prefill of the prompt plus the tokens so far.  Returns
+    the largest gap, relative to that prefill's max |logit|; with ``ref32``
+    (the same weights at float32 compute) also the largest gaps of the
+    decode and of the teacher-forced prefill from ``ref32``'s prefill."""
+    S = batch.get("tokens", batch.get("embeds")).shape[1]
+    logits, caches = model.prefill(batch, cache_len=S + steps)
+    gap = dec32 = pre32 = 0.0
+    for t in range(steps):
+        tok = logits[:, -1].argmax(-1)[:, None]
+        batch = lm_extend(model, batch, tok)
+        logits, caches = model.decode_step(tok, caches, S + t)
+        want, _ = model.prefill(batch)
+        gap = max(gap, rel_err(logits.float(), want.float()))
+        if ref32 is not None:
+            truth, _ = ref32.prefill(batch)
+            dec32 = max(dec32, rel_err(logits.float(), truth))
+            pre32 = max(pre32, rel_err(want.float(), truth))
+    return gap if ref32 is None else (gap, dec32, pre32)
+
+
+def lm_decode_profile(model, batch, steps=4):
+    """Of a decode step at the end of ``batch``'s prompt (after a 2-step
+    warm-up): the mean wall ms of ``steps`` steps, then, of one more step
+    under torch.profiler, device ms, kernel launches and the device ms of
+    the kernels that cast weights to bf16."""
+    from torch.profiler import ProfilerActivity, profile
+    S = batch.get("tokens", batch.get("embeds")).shape[1]
+    logits, caches = model.prefill(batch, cache_len=S + steps + 3)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    for i in range(2):
+        model.decode_step(tok, caches, S + i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        model.decode_step(tok, caches, S + 2 + i)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_step(tok, caches, S + 2 + steps)
+        torch.cuda.synchronize()
+    kern = [ev for ev in prof.key_averages()      # kernels: device time,
+            if ev.self_device_time_total > 0      # not runtime API calls
+            and not ev.key.startswith(("Memcpy", "Memset"))]
+    dev = sum(ev.self_device_time_total for ev in kern) / 1e3
+    casts = sum(ev.self_device_time_total for ev in kern
+                if "bfloat16_copy_kernel" in ev.key) / 1e3
+    return wall, dev, sum(ev.count for ev in kern), casts
+
+
+def phase_lm_serve(card):
+    """[lm-serve] the LM plane's serving path (repro_torch.models).
+
+    Qwen3-4B and RecurrentGemma-2B at their published widths, weights from
+    a seeded generator on the card (float32, bf16 compute): seconds to
+    initialise, prefill seconds, decode tokens/s and peak device memory of
+    examples/serve_lm_torch.py's loop (after a 2-token warm-up), the first
+    request's tokens.  Gates: every decode step's logits against the
+    teacher-forced prefill of the prompt plus the tokens so far, at float32
+    compute (rel 1e-4 of max|logit|) and at bf16 (rel 3e-2, or the bf16
+    prefill's own distance from the float32 prefill on the same tokens
+    where that is larger: the bf16 rounding noise of the model's depth,
+    PERF.md PR 21); two greedy runs
+    of Qwen3-4B from the same seed give the same tokens.  Then all ten
+    architectures at reduced_config on the card and on the CPU from one set
+    of weights: prefill logits and 3 decode steps within rel 1e-4."""
+    import dataclasses
+    from repro_torch.configs import ARCH_IDS, load_all
+    from repro_torch.configs.shapes import reduced_config
+    from repro_torch.models import Model, get_config
+    load_all()
+    serve = load_serve_example()
+    t_phase = time.perf_counter()
+    for arch in LM_FULL:
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model.init(cfg, cuda_gen(), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        batch = serve.make_batch(model, LM_BATCH, LM_PROMPT, SEED)
+        serve.serve_batch(model, batch, 2)
+        toks, st = serve.serve_batch(model, batch, LM_GEN)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[lm-serve] {arch}: {n_params / 1e9:.3f}B parameters "
+              f"(float32, bf16 compute), {LM_BATCH} requests x {LM_PROMPT} "
+              f"prompt tokens, {LM_GEN} greedy tokens: init {init_s:.3f} s, "
+              f"prefill {st['prefill_s']:.4f} s, decode "
+              f"{st['decode_tok_per_s']:.1f} tokens/s ({st['decode_s']:.4f} s "
+              f"for {LM_GEN - 1} steps), peak device memory "
+              f"{peak / 2**30:.3f} GiB | {card}")
+        print(f"[lm-serve] {arch}: first request's tokens {toks[0].tolist()}")
+        wall, dev, n_kern, casts = lm_decode_profile(model, batch)
+        floor = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 3.35e12 * 1e3
+        print(f"[lm-serve] {arch}: one decode step: {wall:.3f} ms of wall "
+              f"(mean of 4); under the profiler {dev:.3f} ms of device time "
+              f"in {n_kern} kernels, {casts:.3f} ms of it casting weights to "
+              f"bf16; byte floor {floor:.3f} ms (the weights read once at "
+              f"3.35 TB/s)")
+        t0 = time.perf_counter()
+        m32 = Model.from_params(dataclasses.replace(cfg, compute_dtype="float32"),
+                                model.tree(), device="cuda")
+        gap32 = lm_consistency(m32, batch, LM_GEN)
+        gap16, dec32, pre32 = lm_consistency(model, batch, LM_GEN, ref32=m32)
+        bound16 = max(LM_BF16_REL, pre32)
+        print(f"[lm-serve] {arch}: decode vs teacher-forced prefill over "
+              f"{LM_GEN} steps, of max|logit|: float32 {gap32:.3e} (bound "
+              f"{LM_F32_REL:g}); bf16 {gap16:.3e} (bound {bound16:.3e}); "
+              f"from the float32 prefill: bf16 decode {dec32:.3e}, bf16 "
+              f"prefill {pre32:.3e}; {time.perf_counter() - t0:.3f} s")
+        if not gap32 <= LM_F32_REL:
+            raise AssertionError(f"{arch}: float32 decode misses its "
+                                 f"teacher-forced prefill by {gap32:.3e}")
+        if not gap16 <= bound16:
+            raise AssertionError(f"{arch}: bf16 decode misses its "
+                                 f"teacher-forced prefill by {gap16:.3e}")
+        del m32, model
+        if arch == "qwen3-4b":
+            torch.cuda.empty_cache()
+            model = Model.init(cfg, cuda_gen(), device="cuda")
+            again, _ = serve.serve_batch(
+                model, serve.make_batch(model, LM_BATCH, LM_PROMPT, SEED),
+                LM_GEN)
+            del model
+            if not torch.equal(again, toks):
+                raise AssertionError(f"{arch}: two greedy runs from seed "
+                                     f"{SEED} differ:\n{toks}\n{again}")
+            print(f"[lm-serve] {arch}: a second run from seed {SEED} gave "
+                  f"the same {tuple(toks.shape)} tokens")
+    torch.cuda.empty_cache()
+    worst = {}
+    for arch in ARCH_IDS:
+        cpu = Model.init(reduced_config(arch), torch.Generator().manual_seed(SEED),
+                         device="cpu")
+        dev = Model.from_params(cpu.cfg, cpu.tree(), device="cuda")
+        batch = serve.make_batch(cpu, 2, 10, SEED)
+        want, wc = cpu.prefill(batch, cache_len=10 + LM_CARD_CPU_STEPS)
+        got, gc = dev.prefill({k: v.cuda() for k, v in batch.items()},
+                              cache_len=10 + LM_CARD_CPU_STEPS)
+        errs = [rel_err(got.cpu(), want)]
+        for t in range(LM_CARD_CPU_STEPS):
+            tok = want[:, -1].argmax(-1)[:, None]
+            want, wc = cpu.decode_step(tok, wc, 10 + t)
+            got, gc = dev.decode_step(tok.cuda(), gc, 10 + t)
+            errs.append(rel_err(got.cpu(), want))
+        worst[arch] = max(errs)
+        if not worst[arch] <= LM_CARD_CPU_REL:
+            raise AssertionError(f"{arch} (reduced): card against CPU "
+                                 f"{errs} (bound {LM_CARD_CPU_REL:g})")
+    print("[lm-serve] reduced configs, card against CPU (prefill + "
+          f"{LM_CARD_CPU_STEPS} decode steps, rel of max|logit|): "
+          + ", ".join(f"{a} {e:.2e}" for a, e in worst.items()))
+    print(f"[lm-serve] {time.perf_counter() - t_phase:.1f} s in all")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -2764,6 +2972,7 @@ def main() -> int:
     serve_counts = phase_serve_adult(card, adult)
     phase_serve_cli(card)
     baseline_counts = tuple(phase_hdmm_synth(card) + phase_hdmm_prefix(card))
+    phase_lm_serve(card)
     counts = (adult_counts, synth_counts) + rplus_counts + (
         tune_counts, bf16_counts) + secure_counts + release_counts \
         + slice_counts + (serve_counts,) + baseline_counts

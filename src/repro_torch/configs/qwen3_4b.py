@@ -1,0 +1,7 @@
+"""Qwen3-4B [hf:Qwen/Qwen3]: GQA with qk-norm."""
+from repro_torch.models.config import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen3-4b", family="dense",
+    n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, d_ff=9728,
+    vocab_size=151_936, head_dim=128, qk_norm=True, rope_theta=1e6))

@@ -6,8 +6,10 @@ weights), the closure in its (len, lex) order and σ² over that closure.
 from exactly that, given as numpy arrays and tuples, so both packages can
 run one plan with identical σ².  :func:`plus_plan_from_arrays` does the same
 for a ResidualPlanner+ plan, given besides each attribute's basic matrix W_i
-and strategy S_i.  They take plain data, never a JAX object: the port imports
-nothing of the JAX package.
+and strategy S_i.  :func:`lm_params_from_jax` and :func:`lm_caches_from_jax`
+carry an LM's parameters and caches across, from the JAX package's
+group-stacked trees to the port's one dict per layer group.  They take plain
+data, never a JAX object: the port imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -96,3 +98,46 @@ def plus_plan_arrays(plan) -> tuple:
     sizes, wk, w, cl, sig = plan_arrays(plan)
     bases = [(b.W, None if b.S is b.W else b.S) for b in plan.schema.bases]
     return sizes, bases, wk, w, cl, sig, plan.objective
+
+
+def _unstack_groups(tree: dict, n_groups: dict) -> dict:
+    """``tree`` with each group-stacked subtree (``blocks``, ``tail_blocks``,
+    ``encoder_blocks``: every leaf led by a group axis) split into a list of
+    per-group trees, every leaf a numpy array."""
+    def index(t, g):
+        if isinstance(t, dict):
+            return {k: index(v, g) for k, v in t.items()}
+        return np.asarray(t)[g]
+
+    def arrays(t):
+        if isinstance(t, dict):
+            return {k: arrays(v) for k, v in t.items()}
+        return np.asarray(t)
+
+    out = {}
+    for k, v in tree.items():
+        if k in n_groups:
+            out[k] = [index(v, g) for g in range(n_groups[k])]
+        else:
+            out[k] = arrays(v)
+    return out
+
+
+def _group_counts(cfg) -> dict:
+    return {"blocks": cfg.n_pattern_groups, "tail_blocks": cfg.n_tail,
+            "encoder_blocks": cfg.encoder_layers}
+
+
+def lm_params_from_jax(cfg, params: dict) -> dict:
+    """The port's parameter tree for an LM config, from the JAX package's
+    ``Model.init`` pytree given as nested dicts of numpy arrays: each leaf
+    of ``blocks``, ``tail_blocks`` and ``encoder_blocks`` is split along
+    its leading group axis into one dict per group.  Feed the result to
+    :meth:`repro_torch.models.Model.from_params`."""
+    return _unstack_groups(params, _group_counts(cfg))
+
+
+def lm_caches_from_jax(cfg, caches: dict) -> dict:
+    """The port's cache tree from the JAX package's group-stacked caches
+    (as :func:`lm_params_from_jax` does for parameters), numpy leaves."""
+    return _unstack_groups(caches, _group_counts(cfg))

@@ -1,0 +1,377 @@
+"""Core layers: norms, RoPE, memory-efficient attention (causal / local /
+decode), GQA and MLA blocks, SwiGLU: the port of ``repro.models.layers``.
+
+Parameters are single-sourced as ``PDef`` leaves (shape, logical axes, init
+scale); :func:`init_from_defs` draws real tensors from an explicit
+``torch.Generator``.  The math is plain functions over a dict of tensors
+``p``, computed where the reference computes it: weights cast to the
+compute dtype on use, attention scores and softmax in float32 (the
+reference's ``preferred_element_type``), norms and RoPE angles in float32.
+Attention stays plain torch ops, as the reference's is jnp, not Pallas.
+
+The reference's logical-axis sharding constraints do nothing on one device
+and are dropped here.  One behaviour differs on purpose:
+:func:`blockwise_attention` masks its KV padding in causal mode too (the
+reference masks it only when ``causal=False``, so zero-padded keys enter
+every causal softmax whose length is not a multiple of ``kv_block``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.kron_matvec._layout import resolve_device
+
+from .config import torch_dtype
+
+NEG_POS = -(10 ** 9)   # position of a KV pad slot: before every query
+
+
+class PDef(NamedTuple):
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    scale: float = 1.0          # stddev multiplier on 1/sqrt(fan_in)
+    init: str = "normal"        # normal | zeros | ones
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init_from_defs(defs, gen: torch.Generator, dtype=torch.float32,
+                   device=None):
+    """Materialize a tree of PDef leaves on ``device``: normal leaves drawn
+    from ``gen`` (on the same device) with std ``scale/√fan_in``, fan_in the
+    second-to-last axis (the last of a vector), one leaf after another with
+    dict keys in sorted order."""
+    dev = resolve_device(device)
+
+    def make(pd: PDef) -> torch.Tensor:
+        if pd.init == "zeros":
+            return torch.zeros(pd.shape, dtype=dtype, device=dev)
+        if pd.init == "ones":
+            return torch.ones(pd.shape, dtype=dtype, device=dev)
+        fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
+        std = pd.scale / math.sqrt(max(fan_in, 1))
+        w = torch.randn(pd.shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return w.mul_(std).to(dtype)
+
+    def build(t):
+        if isinstance(t, dict):
+            drawn = {k: build(t[k]) for k in sorted(t)}
+            return {k: drawn[k] for k in t}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        return make(t)
+
+    return build(defs)
+
+
+# ---------------------------------------------------------------------------
+# Norms & RoPE
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, w, eps: float = 1e-6):
+    x32 = x.float()
+    y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def head_rms_norm(x, w, eps: float = 1e-6):
+    """qk-norm: RMS over the head_dim axis of (..., H, dh)."""
+    return rms_norm(x, w, eps)
+
+
+def rope(x, positions, theta: float = 10_000.0):
+    """x: (..., S, H, dh) with positions (S,) (one entry for a decode step)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=x.device) / half)
+    ang = positions[..., None].float() * freqs                  # (S, half)
+    cos = torch.cos(ang)[..., None, :]                           # over H
+    sin = torch.sin(ang)[..., None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1f * cos - x2f * sin, x1f * sin + x2f * cos],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Memory-efficient attention: online softmax over KV blocks
+# ---------------------------------------------------------------------------
+
+def blockwise_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                        window: int = 0, kv_block: int = 1024):
+    """softmax(QKᵀ/√dh)V without materializing the S×T score matrix.
+
+    q: (B, S, H, dh);  k, v: (B, T, Hkv, dh);  GQA via head grouping.
+    q_pos: (S,), kv_pos: (T,) absolute positions for the causal/local masks.
+    K/V are padded to a multiple of ``kv_block``; the pad slots are masked
+    whatever the mode.
+    """
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    nkv = -(-T // kv_block)
+    pad = nkv * kv_block - T
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=NEG_POS)
+    qg = q.reshape(B, S, Hkv, G, dh).float()
+    m = torch.full((B, S, Hkv, G), -math.inf, device=q.device)
+    l = torch.zeros((B, S, Hkv, G), device=q.device)
+    acc = torch.zeros((B, S, Hkv, G, dh), device=q.device)
+    for j in range(nkv):
+        blk = slice(j * kv_block, (j + 1) * kv_block)
+        kj, vj, pj = k[:, blk], v[:, blk], kv_pos[blk]
+        s = torch.einsum("bskgd,btkd->bskgt", qg, kj.float()) * scale
+        mask_qt = None
+        if causal:
+            mask_qt = pj[None, :] <= q_pos[:, None]              # (S, kvb)
+        if window:
+            w_mask = pj[None, :] > q_pos[:, None] - window
+            mask_qt = w_mask if mask_qt is None else (mask_qt & w_mask)
+        if pad:
+            v_mask = (pj >= 0)[None, :].expand(S, -1)
+            mask_qt = v_mask if mask_qt is None else (mask_qt & v_mask)
+        if mask_qt is not None:
+            s = s.masked_fill(~mask_qt[None, :, None, None, :], -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # fully-masked blocks keep m_new = -inf: guard exp(-inf - -inf)
+        fin = torch.isfinite(m_new)
+        corr = torch.where(fin, torch.exp(m - m_new), 0.0)
+        p = torch.exp(s - torch.where(fin, m_new, 0.0)[..., None])
+        p = torch.where(torch.isfinite(s), p, 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bskgt,btkd->bskgd", p.to(vj.dtype).float(), vj.float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, S, H, dh).to(q.dtype)
+
+
+def local_attention(q, k, v, q_pos, kv_pos, *, window: int):
+    """Chunked sliding-window causal attention: O(S·2W) compute and memory.
+
+    The sequence is cut into W-sized chunks; chunk i attends to chunks
+    {i-1, i} with an exact (q_pos - kv_pos) ∈ [0, W) mask.
+    """
+    B, S0, H, dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    W = window
+    pad = (-S0) % W
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=NEG_POS)
+        kv_pos = F.pad(kv_pos, (0, pad), value=2 * NEG_POS)
+    S = S0 + pad
+    nc = S // W
+    scale = 1.0 / math.sqrt(dh)
+    qc = q.reshape(B, nc, W, Hkv, G, dh)
+    kc = k.reshape(B, nc, W, Hkv, dh)
+    vc = v.reshape(B, nc, W, Hkv, dh)
+    kprev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    k2 = torch.cat([kprev, kc], dim=2)               # (B, nc, 2W, Hkv, dh)
+    v2 = torch.cat([vprev, vc], dim=2)
+    s = torch.einsum("bcwkgd,bctkd->bckgwt", qc.float(), k2.float()) * scale
+    qp = q_pos.reshape(nc, W)
+    kp = kv_pos.reshape(nc, W)
+    kp_prev = torch.cat([torch.full_like(kp[:1], NEG_POS), kp[:-1]], dim=0)
+    kp2 = torch.cat([kp_prev, kp], dim=1)
+    diff = qp[:, :, None] - kp2[:, None, :]           # (nc, W, 2W)
+    mask = (diff >= 0) & (diff < W)
+    s = s.masked_fill(~mask[None, :, None, None, :, :], -math.inf)
+    # pad-safe softmax (fully-masked rows → 0, not NaN)
+    smax = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+    p = torch.exp(s - smax)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bckgwt,bctkd->bcwkgd", p.to(v2.dtype).float(),
+                       v2.float())
+    return out.reshape(B, S, H, dh)[:, :S0].to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
+    """Single-step attention of q (B, 1, H, dh) against a cache (B, T, Hkv,
+    dh) whose slots 0..pos are filled."""
+    B, _, H, dh = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(B, Hkv, G, dh)
+    k_cache = k_cache.to(q.dtype)
+    v_cache = v_cache.to(q.dtype)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) * scale
+    idx = torch.arange(T, device=q.device)
+    mask = idx <= pos
+    if window:
+        mask = mask & (idx > pos - window)
+    s = s.masked_fill(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, dh).to(q.dtype)
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, pos: int):
+    """Write the one-step ``new`` (B, 1, ...) into slot ``pos`` of ``cache``
+    in place; a slot past the cache raises (never clamps)."""
+    if not 0 <= pos < cache.shape[1]:
+        raise IndexError(f"decode position {pos} outside a cache of "
+                         f"{cache.shape[1]} slots")
+    cache[:, pos] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Attention blocks (GQA and MLA)
+# ---------------------------------------------------------------------------
+
+def attn_defs(cfg) -> Dict[str, Any]:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    defs: Dict[str, Any] = {
+        "wq": PDef((d, qd), ("dmodel_fsdp", "qkv")),
+        "wk": PDef((d, kvd), ("dmodel_fsdp", "qkv")),
+        "wv": PDef((d, kvd), ("dmodel_fsdp", "qkv")),
+        "wo": PDef((qd, d), ("qkv", "dmodel_fsdp")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = PDef((qd,), ("qkv",), init="zeros")
+        defs["bk"] = PDef((kvd,), ("qkv",), init="zeros")
+        defs["bv"] = PDef((kvd,), ("qkv",), init="zeros")
+    if cfg.qk_norm:
+        defs["q_norm"] = PDef((cfg.head_dim,), (None,), init="ones")
+        defs["k_norm"] = PDef((cfg.head_dim,), (None,), init="ones")
+    return defs
+
+
+def attn_apply(p, x, *, cfg, mode: str, cache=None, pos=None,
+               local: bool = False):
+    """x: (B, S, D).  Returns (y, new_cache); a decode step writes its K/V
+    into slot ``pos`` of ``cache`` in place."""
+    B, S, D = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = torch_dtype(cfg.compute_dtype)
+    xq = x.to(cdt)
+    q = xq @ p["wq"].to(cdt)
+    k = xq @ p["wk"].to(cdt)
+    v = xq @ p["wv"].to(cdt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, Hkv, dh)
+    v = v.reshape(B, S, Hkv, dh)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+
+    if mode == "decode":
+        if cfg.rope_theta:
+            at = torch.tensor([pos], device=x.device)
+            q = rope(q, at, cfg.rope_theta)
+            k = rope(k, at, cfg.rope_theta)
+        k_cache = _write_slot(cache["k"], k, pos)
+        v_cache = _write_slot(cache["v"], v, pos)
+        o = decode_attention(q, k_cache, v_cache, pos,
+                             window=cfg.local_window if local else 0)
+        new_cache = {"k": k_cache, "v": v_cache}
+    else:
+        positions = torch.arange(S, device=x.device)
+        if cfg.rope_theta:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        if local:
+            o = local_attention(q, k, v, positions, positions,
+                                window=cfg.local_window)
+        else:
+            o = blockwise_attention(q, k, v, positions, positions, causal=True)
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    y = o.reshape(B, S, H * dh) @ p["wo"].to(cdt)
+    return y.to(x.dtype), new_cache
+
+
+def mla_defs(cfg) -> Dict[str, Any]:
+    d, qd, r = cfg.d_model, cfg.q_dim, cfg.kv_lora_rank
+    return {
+        "wq": PDef((d, qd), ("dmodel_fsdp", "qkv")),
+        "w_dkv": PDef((d, r), ("dmodel_fsdp", "lora")),
+        "w_uk": PDef((r, qd), ("lora", "qkv")),
+        "w_uv": PDef((r, qd), ("lora", "qkv")),
+        "wo": PDef((qd, d), ("qkv", "dmodel_fsdp")),
+    }
+
+
+def mla_apply(p, x, *, cfg, mode: str, cache=None, pos=None):
+    """DeepSeek-style Multi-head Latent Attention with a compressed KV cache.
+
+    Train/prefill: decompress K/V and run blockwise attention.  Decode: the
+    absorbed form, scores and values in the rank-r latent space against a
+    cache of c_kv (B, T, r) only.
+    """
+    B, S, D = x.shape
+    H, dh, r = cfg.n_heads, cfg.head_dim, cfg.kv_lora_rank
+    cdt = torch_dtype(cfg.compute_dtype)
+    xq = x.to(cdt)
+    q = (xq @ p["wq"].to(cdt)).reshape(B, S, H, dh)
+    c_kv = xq @ p["w_dkv"].to(cdt)                          # (B, S, r)
+
+    if mode == "decode":
+        c_cache = _write_slot(cache["c_kv"], c_kv, pos)
+        c_comp = c_cache.to(cdt)
+        wuk = p["w_uk"].to(cdt).reshape(r, H, dh)
+        wuv = p["w_uv"].to(cdt).reshape(r, H, dh)
+        q_lat = torch.einsum("bshd,rhd->bshr", q, wuk)      # absorb W_uk into q
+        s = torch.einsum("bshr,btr->bhst", q_lat.float(),
+                         c_comp.float()) / math.sqrt(dh)
+        idx = torch.arange(c_cache.shape[1], device=x.device)
+        s = s.masked_fill(~(idx <= pos), -math.inf)
+        pr = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", pr.to(cdt), c_comp)
+        o = torch.einsum("bshr,rhd->bshd", o_lat, wuv)
+        new_cache = {"c_kv": c_cache}
+    else:
+        k = (c_kv @ p["w_uk"].to(cdt)).reshape(B, S, H, dh)
+        v = (c_kv @ p["w_uv"].to(cdt)).reshape(B, S, H, dh)
+        positions = torch.arange(S, device=x.device)
+        o = blockwise_attention(q, k, v, positions, positions, causal=True)
+        new_cache = {"c_kv": c_kv} if mode == "prefill" else None
+    y = o.reshape(B, S, H * dh) @ p["wo"].to(cdt)
+    return y.to(x.dtype), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN
+# ---------------------------------------------------------------------------
+
+def swiglu_defs(cfg) -> Dict[str, Any]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wg": PDef((d, f), ("dmodel_fsdp", "dff")),
+        "wu": PDef((d, f), ("dmodel_fsdp", "dff")),
+        "wo": PDef((f, d), ("dff", "dmodel_fsdp")),
+    }
+
+
+def swiglu_apply(p, x, *, cfg):
+    cdt = torch_dtype(cfg.compute_dtype)
+    xq = x.to(cdt)
+    g = F.silu(xq @ p["wg"].to(cdt))
+    u = xq @ p["wu"].to(cdt)
+    return ((g * u) @ p["wo"].to(cdt)).to(x.dtype)

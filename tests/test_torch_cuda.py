@@ -869,3 +869,75 @@ def test_hdmm_measure_reconstruct_on_card_matches_cpu(cuda, sizes, k, kinds,
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == torch.float32
         assert float((g.cpu() - w).abs().max()) <= REL * scale
+
+
+# ---------------------------------------------------------------------------
+# The LM plane's serving path (repro_torch.models) on the card
+# ---------------------------------------------------------------------------
+
+# one reduced architecture per block kind: attn with qk-norm; rglru and
+# attn_local; mla with the MoE FFN; mlstm and slstm; the encoder's
+# attn_bidir and cross attention; the embedding frontend stub
+LM_ARCHS = ("qwen3-4b", "recurrentgemma-2b", "deepseek-v2-236b",
+            "xlstm-350m", "whisper-small", "chameleon-34b")
+LM_REL = 1e-4   # of max|CPU logits|, float32 with TF32 off
+
+
+def _lm_batch(model, B, S, seed):
+    from repro_torch.data.tokens import synthetic_lm_batches
+    cfg = model.cfg
+    toks = torch.as_tensor(next(synthetic_lm_batches(
+        cfg.vocab_size, B, S, seed=seed))["tokens"])
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": toks} if cfg.frontend == "none" else \
+        {"embeds": torch.randn((B, S, cfg.d_model), generator=gen)}
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                          generator=gen)
+    return batch
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_reduced_on_card_matches_cpu(cuda, arch):
+    """Prefill logits and 3 decode steps (the CPU's greedy tokens fed to
+    both) of one set of weights on the card and on the CPU."""
+    from repro_torch.configs import load_all
+    from repro_torch.configs.shapes import reduced_config
+    from repro_torch.models import Model
+    load_all()
+    cpu = Model.init(reduced_config(arch), torch.Generator().manual_seed(0),
+                     device="cpu")
+    card = Model.from_params(cpu.cfg, cpu.tree(), device=cuda)
+    batch = _lm_batch(cpu, 2, 10, seed=1)
+    want, wc = cpu.prefill(batch, cache_len=13)
+    got, gc = card.prefill({k: v.to(cuda) for k, v in batch.items()},
+                           cache_len=13)
+    assert got.device.type == "cuda"
+    assert _rel(got.cpu(), want) < LM_REL
+    for t in range(3):
+        tok = want[:, -1].argmax(-1)[:, None]
+        want, wc = cpu.decode_step(tok, wc, 10 + t)
+        got, gc = card.decode_step(tok.to(cuda), gc, 10 + t)
+        assert _rel(got.cpu(), want) < LM_REL, t
+
+
+def test_lm_model_and_example_default_to_cuda(cuda):
+    """Model.init and the serving example's entry point without a device
+    run on the card."""
+    import importlib.util
+    import os
+    from repro_torch.configs import load_all
+    from repro_torch.configs.shapes import reduced_config
+    from repro_torch.models import Model
+    load_all()
+    model = Model.init(reduced_config("qwen3-4b"))
+    assert model.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in model.parameters())
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "examples", "serve_lm_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_lm_torch", path)
+    serve = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve)
+    toks, stats = serve.main(["--reduced", "--batch", "2", "--prompt-len", "8",
+                              "--gen", "3"])
+    assert toks.shape == (2, 3) and stats["decode_tok_per_s"] > 0

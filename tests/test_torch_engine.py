@@ -113,7 +113,12 @@ def test_port_imports_neither_jax_nor_repro():
             " repro_torch.analysis.astutils, repro_torch.analysis.findings,"
             " repro_torch.analysis.registry, repro_torch.analysis.privacy,"
             " repro_torch.analysis.locks, repro_torch.analysis.kernels,"
-            " repro_torch.analysis.driver, repro_torch.analysis.__main__;"
+            " repro_torch.analysis.driver, repro_torch.analysis.__main__,"
+            " repro_torch.models, repro_torch.models.config,"
+            " repro_torch.models.layers, repro_torch.models.recurrent,"
+            " repro_torch.models.moe, repro_torch.models.transformer,"
+            " repro_torch.configs.shapes, repro_torch.data.tokens;"
+            " repro_torch.configs.load_all();"
             " repro_torch.analysis.kernel_limits();"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
