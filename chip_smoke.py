@@ -139,7 +139,21 @@ Phases, in order; any failure exits non-zero:
    give the same tokens; all ten architectures at reduced_config on the
    card against the CPU (rel 1e-4). No kernel of the port runs here: the
    reference's LM plane reaches no pl.pallas_call.
-28. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+28. [lm-train] the LM plane's training path (repro_torch.train): Qwen3-4B
+   at its published widths and full depth, 6 steps (2 microbatches, remat
+   "dots") on one 8 x 128 batch: step seconds, tokens/s, peak device
+   memory, losses and grad norms, device ms and launches of one step;
+   gates: finite, the sixth loss below the first, the first within rel
+   1e-5 of the eval loss, which a lost microbatch would exceed (the first
+   microbatch's eval loss alone is held off the bound).  xLSTM-350M at full width, 3 DP-SGD steps:
+   the vmap clipped mean against a per-example loop (rel 1e-4, float32,
+   the first 2 layers; at 24 the float32 rounding exceeds that, and
+   tools/lm_dp_vmap_gap.py --float64 holds vmap to the loop there),
+   the noise's mean and std within 5 standard errors.  All ten reduced
+   architectures, one step on the card against the CPU (rel 1e-4);
+   train_loop resumed bit for bit; examples/dp_corpus_stats_torch.py with
+   exactly 3 funded steps and fused launches > 0.
+29. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
 
@@ -2892,6 +2906,439 @@ def phase_lm_serve(card):
     print(f"[lm-serve] {time.perf_counter() - t_phase:.1f} s in all")
 
 
+# [lm-train]: the LM plane's training path.  Qwen3-4B at its published
+# widths and full depth takes 6 steps on one fixed batch; xLSTM-350M takes
+# 3 DP-SGD steps; the ten reduced configs one step each on the card and on
+# the CPU; train_loop resumes bit for bit; the DP corpus example spends one
+# budget on a kernel-backed release and on DP-SGD steps.
+LM_TRAIN_ARCH, LM_DP_ARCH = "qwen3-4b", "xlstm-350m"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_DP_STEPS = 8, 128, 6, 3
+# the first step's loss (mean of 2 microbatch means) against the eval loss
+# of the whole batch: equal in exact arithmetic (every label counts, both
+# halves hold 512 tokens), and every chip run so far read a gap of 0; 1e-5
+# leaves room for float32 sums of the token losses in another order
+# (about 1e-7) and stays far under a step that lost a microbatch: the
+# planted reading, the eval loss of the first half alone against the
+# whole, must exceed the bound, or the gate could not catch that fault
+LM_TRAIN_EVAL_REL = 1e-5
+LM_DP_REL = 1e-4          # vmap against the loop, of each leaf's max
+LM_NOISE_SE = 5.0         # noise mean and std, in standard errors
+LM_TRAIN_CARD_CPU_REL = 1e-4
+
+
+def step_profile(step, state, batch, top=8):
+    """Device ms and kernel launches of one more step under torch.profiler
+    (kernels only, as lm_decode_profile counts them), and the ``top``
+    kernels by device time as (ms, launches, name)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    kern = sorted((ev for ev in prof.key_averages()
+                   if ev.self_device_time_total > 0
+                   and not ev.key.startswith(("Memcpy", "Memset"))),
+                  key=lambda ev: -ev.self_device_time_total)
+    return (state, sum(ev.self_device_time_total for ev in kern) / 1e3,
+            sum(ev.count for ev in kern),
+            [(ev.self_device_time_total / 1e3, ev.count, short_kernel(ev.key))
+             for ev in kern[:top]])
+
+
+def short_kernel(key: str) -> str:
+    """A profiler kernel key cut to its kernel and the functors or ATen
+    kernels named in its template arguments (what the elementwise kernels
+    compute)."""
+    import re
+    base = key.replace("void ", "").split("<", 1)[0].split("::")[-1]
+    named = re.findall(r"(\w+(?:Functor|_kernel_cuda|_kernel_impl)\w*)", key)
+    inner = ",".join(list(dict.fromkeys(n for n in named if n != base))[:2])
+    return f"{base}[{inner}]" if inner else base[:60]
+
+
+def free_device_memory():
+    """Collect garbage, then return the cached blocks: a freed model caught
+    in a reference cycle (on the CPU the first remat call's lazy imports
+    leave one holding that step's frames) keeps its memory until the
+    collector runs."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_train_batch(cfg, seed=SEED):
+    from repro_torch.data.tokens import synthetic_lm_batches
+    b = next(synthetic_lm_batches(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                  seed=seed))
+    return {k: torch.as_tensor(b[k], device="cuda") for k in ("tokens", "labels")}
+
+
+def lm_train_full(card):
+    """(a) Qwen3-4B at full width: 6 steps of 2 microbatches, "dots"."""
+    from repro_torch.models import Model, get_config, transformer
+    from repro_torch.train import AdamWConfig, make_eval_step, make_train_step
+    from repro_torch.train.train_step import init_train_state
+    cfg = get_config(LM_TRAIN_ARCH)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model.init(cfg, cuda_gen(), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = lm_train_batch(cfg)
+    eval_step = make_eval_step(model)
+    eval_loss = float(eval_step(model.tree(), batch))
+    half = float(eval_step(model.tree(), {k: v[:LM_TRAIN_BATCH // 2]
+                                         for k, v in batch.items()}))
+    planted = abs(half - eval_loss) / abs(eval_loss)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=20)
+    transformer.set_remat_policy("dots")
+    state = init_train_state(model, oc)
+    step = make_train_step(model, oc, microbatches=2, remat=True)
+    losses, norms, secs = [], [], []
+    for _ in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    state, dev_ms, n_kern, top = step_profile(step, state, batch)
+    # the same step under remat "nothing" (plain recomputation, no dispatch
+    # mode); without remat the saved bf16 weight casts do not fit the card
+    transformer.set_remat_policy("nothing")
+    try:
+        nothing = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            float(met["loss"])
+            nothing.append(time.perf_counter() - t0)
+        state, dev_nothing, kern_nothing, _ = step_profile(step, state, batch)
+    finally:
+        transformer.set_remat_policy("dots")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    steady = sum(secs[1:]) / len(secs[1:])
+    print(f"[lm-train] {LM_TRAIN_ARCH}: {n_params / 1e9:.3f}B parameters "
+          f"(float32, bf16 compute), {cfg.n_layers} layers, batch "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens in 2 microbatches, remat "
+          f"'dots', AdamW float32 moments: init {init_s:.3f} s; step 1 "
+          f"{secs[0]:.3f} s, steps 2-{LM_TRAIN_STEPS} "
+          + ", ".join(f"{s:.4f}" for s in secs[1:])
+          + f" s (mean {steady:.4f} s, {tokens / steady:.1f} tokens/s); peak "
+          f"device memory {peak / 2**30:.3f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.3f}; "
+          f"one more step under the profiler {dev_ms:.3f} ms of device time "
+          f"in {n_kern} kernels; the next 3 steps under remat 'nothing' "
+          + ", ".join(f"{v:.4f}" for v in nothing)
+          + f" s, one more {dev_nothing:.3f} ms of device time in "
+          f"{kern_nothing} kernels | {card}")
+    print(f"[lm-train] {LM_TRAIN_ARCH}: losses "
+          + ", ".join(f"{v:.6f}" for v in losses) + "; grad norms "
+          + ", ".join(f"{v:.4f}" for v in norms)
+          + f"; eval loss of the initial weights {eval_loss:.6f} (step 1 off "
+          f"by {abs(losses[0] - eval_loss) / abs(eval_loss):.3e}, bound "
+          f"{LM_TRAIN_EVAL_REL:.3e}; a step of the first microbatch alone "
+          f"would be off by {planted:.3e}); the profiled step's top kernels (ms, "
+          f"launches): " + "; ".join(f"{n} {ms:.3f} x{c}" for ms, c, n in top))
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{LM_TRAIN_ARCH}: a loss or grad norm is not "
+                             f"finite: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{LM_TRAIN_ARCH}: the loss did not fall: {losses}")
+    if not abs(losses[0] - eval_loss) <= LM_TRAIN_EVAL_REL * abs(eval_loss):
+        raise AssertionError(f"{LM_TRAIN_ARCH}: step 1's loss {losses[0]} "
+                             f"against the eval loss {eval_loss}")
+    if not planted > LM_TRAIN_EVAL_REL:
+        raise AssertionError(f"{LM_TRAIN_ARCH}: the eval gate cannot tell a "
+                             f"lost microbatch ({planted:.3e})")
+    del model, state, step
+
+
+def clipped_loop(model, batch, clip):
+    """Mean of single-example gradients (torch.func.grad), each clipped to
+    ``clip``, summed as they come."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.train_step import functional_loss
+    loss = functional_loss(model)
+    B = next(iter(batch.values())).shape[0]
+    acc = None
+    for i in range(B):
+        g = tree_leaves(torch.func.grad(loss)(
+            model.tree(), {k: v[i:i + 1] for k, v in batch.items()}))
+        n = torch.sqrt(sum(torch.sum(x.float() ** 2) for x in g))
+        s = torch.clamp(clip / torch.clamp_min(n, 1e-12), max=1.0)
+        acc = [x * s for x in g] if acc is None else \
+            [a.add_(x * s) for a, x in zip(acc, g)]
+        del g
+    return [a / B for a in acc]
+
+
+def lm_train_dp(card):
+    """(b) DP-SGD on xLSTM-350M at full width."""
+    import dataclasses
+    from repro_torch.models import Model, get_config
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.dp import (DPSGDAccountant, DPSGDConfig,
+                                      add_dp_noise, per_example_clipped_grad)
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train.train_step import functional_loss, init_train_state
+    cfg = get_config(LM_DP_ARCH)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model.init(cfg, cuda_gen(), device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = lm_train_batch(cfg)
+    dpc = DPSGDConfig(clip_norm=1.0, noise_multiplier=1.0)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=20)
+    # vmap against the loop, float32 compute, before any step moves the
+    # weights, on the first pattern group (2 layers) at full width: through
+    # the random-weight recurrences float32 rounding grows with depth, and
+    # at 24 layers two vmap batchings of one function (8 against 4 x 2
+    # examples) already differ by 3e-3 of max|g|; the same model code in
+    # float64 puts vmap against the loop at 7e-12 there, so the float32
+    # gap is rounding, not vmap (tools/lm_dp_vmap_gap.py [--float64])
+    head = dict(model.tree(), blocks=model.tree()["blocks"][:1])
+    m32 = Model.from_params(dataclasses.replace(
+        cfg, n_layers=len(cfg.pattern), compute_dtype="float32"), head,
+        device="cuda")
+    t0 = time.perf_counter()
+    got = tree_leaves(per_example_clipped_grad(functional_loss(m32),
+                                               m32.tree(), batch, dpc.clip_norm))
+    torch.cuda.synchronize()
+    vmap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = clipped_loop(m32, batch, dpc.clip_norm)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    dp_err = max(rel_err(g, w) for g, w in zip(got, want))
+    del got, want, m32
+    state = init_train_state(model, oc)
+    rng0 = state["rng"].clone()
+    step = make_train_step(model, oc, microbatches=2, dp=dpc)
+    acct = DPSGDAccountant(dpc)
+    losses, secs = [], []
+    for _ in range(LM_DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        secs.append(time.perf_counter() - t0)
+        acct.charge_step()
+    peak = torch.cuda.max_memory_allocated()
+    # the first step's noise, replayed from the state's generator
+    gen = torch.Generator("cuda")
+    gen.set_state(rng0)
+    zeros = tree_map(lambda p: torch.zeros_like(p), model.tree())
+    noise = tree_leaves(add_dp_noise(zeros, gen, dpc.clip_norm,
+                                     dpc.noise_multiplier, LM_TRAIN_BATCH))
+    n = sum(x.numel() for x in noise)
+    s1 = sum(float(x.double().sum()) for x in noise)
+    s2 = sum(float((x.double() ** 2).sum()) for x in noise)
+    del noise, zeros
+    mean, std = s1 / n, math.sqrt(s2 / n - (s1 / n) ** 2)
+    want_std = dpc.clip_norm * dpc.noise_multiplier / LM_TRAIN_BATCH
+    mean_se, std_se = mean / (want_std / math.sqrt(n)), \
+        (std - want_std) / (want_std / math.sqrt(2 * n))
+    report = acct.report()
+    print(f"[lm-train] {LM_DP_ARCH}: {n_params / 1e9:.3f}B parameters, DP-SGD "
+          f"(C {dpc.clip_norm}, sigma {dpc.noise_multiplier}), batch "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} in 2 microbatches: step seconds "
+          + ", ".join(f"{s:.3f}" for s in secs) + "; losses "
+          + ", ".join(f"{v:.6f}" for v in losses)
+          + f"; peak device memory {peak / 2**30:.3f} GiB; accountant {report} "
+          f"| {card}")
+    print(f"[lm-train] {LM_DP_ARCH}: vmap clipped mean against a loop of "
+          f"{LM_TRAIN_BATCH} single-example clipped gradients (the first "
+          f"{len(cfg.pattern)} layers at full width, float32, TF32 off) "
+          f"{dp_err:.3e} of each leaf's max (bound {LM_DP_REL:g}); vmap "
+          f"{vmap_s:.3f} s, loop {loop_s:.3f} s; first step's noise over {n} "
+          f"entries: mean {mean:.3e} ({mean_se:+.2f} SE), std {std:.6e} against "
+          f"{want_std:.6e} ({std_se:+.2f} SE)")
+    if not dp_err <= LM_DP_REL:
+        raise AssertionError(f"{LM_DP_ARCH}: vmap clipped mean off the loop by "
+                             f"{dp_err:.3e}")
+    if not (abs(mean_se) <= LM_NOISE_SE and abs(std_se) <= LM_NOISE_SE):
+        raise AssertionError(f"{LM_DP_ARCH}: noise moments {mean_se:+.2f}, "
+                             f"{std_se:+.2f} SE")
+    if not (all(math.isfinite(v) for v in losses) and report["steps"] == LM_DP_STEPS
+            and abs(report["pcost"] - LM_DP_STEPS / dpc.noise_multiplier ** 2)
+            <= 1e-12):
+        raise AssertionError(f"{LM_DP_ARCH}: DP run {losses} {report}")
+    del model, state, step
+
+
+def lm_train_card_cpu():
+    """(c) one step of each reduced architecture on the card against the
+    CPU, and reduced Qwen3-4B's DP clipped mean."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs.shapes import reduced_config
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.dp import per_example_clipped_grad
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train.train_step import functional_loss, init_train_state
+    # eps 1e-4 bounds Adam's first-step amplification of a gradient's last
+    # bits at 1e4 (at 1e-8 a near-zero entry may move by lr)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=20, eps=1e-4)
+    worst = {}
+    for arch in ARCH_IDS:
+        cpu = Model.init(reduced_config(arch), torch.Generator().manual_seed(SEED),
+                         device="cpu")
+        # a copy: the CPU step updates its weights in place
+        dev = Model.from_params(cpu.cfg, tree_map(torch.clone, cpu.tree()),
+                                device="cuda")
+        gen = torch.Generator().manual_seed(SEED)
+        batch = {"labels": torch.randint(0, cpu.cfg.vocab_size, (4, 16),
+                                         generator=gen)}
+        if cpu.cfg.frontend == "none":
+            batch["tokens"] = torch.randint(0, cpu.cfg.vocab_size, (4, 16),
+                                            generator=gen)
+        else:
+            batch["embeds"] = torch.randn((4, 16, cpu.cfg.d_model), generator=gen)
+        if cpu.cfg.encoder_layers:
+            batch["enc_embeds"] = torch.randn(
+                (4, cpu.cfg.encoder_seq, cpu.cfg.d_model), generator=gen)
+        out = []
+        for m, b in ((cpu, batch), (dev, {k: v.cuda() for k, v in batch.items()})):
+            st, met = make_train_step(m, oc, microbatches=2, remat=True)(
+                init_train_state(m, oc), b)
+            out.append((float(met["loss"]), tree_leaves(st["params"])
+                        + [x for x in tree_leaves(st["opt"])
+                           if x.dtype.is_floating_point]))
+        errs = [abs(out[1][0] - out[0][0]) / abs(out[0][0])]
+        errs += [rel_err(g.detach().cpu(), w.detach())
+                 for g, w in zip(out[1][1], out[0][1])]
+        worst[arch] = max(errs)
+        if not worst[arch] <= LM_TRAIN_CARD_CPU_REL:
+            raise AssertionError(f"{arch} (reduced): a train step on the card "
+                                 f"off the CPU's by {worst[arch]:.3e}")
+    cpu = Model.init(reduced_config(LM_TRAIN_ARCH),
+                     torch.Generator().manual_seed(SEED), device="cpu")
+    dev = Model.from_params(cpu.cfg, cpu.tree(), device="cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    batch = {k: torch.randint(0, cpu.cfg.vocab_size, (4, 16), generator=gen)
+             for k in ("tokens", "labels")}
+    want = tree_leaves(per_example_clipped_grad(functional_loss(cpu), cpu.tree(),
+                                                batch, 0.1))
+    got = tree_leaves(per_example_clipped_grad(
+        functional_loss(dev), dev.tree(), {k: v.cuda() for k, v in batch.items()},
+        0.1))
+    dp_err = max(rel_err(g.cpu(), w) for g, w in zip(got, want))
+    print("[lm-train] reduced configs, one train step (2 microbatches, 'dots'; "
+          "float32, TF32 off) card against CPU, worst of the loss, every "
+          "parameter and every moment (rel of each leaf's max): "
+          + ", ".join(f"{a} {e:.2e}" for a, e in worst.items())
+          + f"; DP clipped mean of reduced {LM_TRAIN_ARCH} {dp_err:.2e} (bound "
+          f"{LM_TRAIN_CARD_CPU_REL:g})")
+    if not dp_err <= LM_TRAIN_CARD_CPU_REL:
+        raise AssertionError(f"DP clipped mean on the card off the CPU's by "
+                             f"{dp_err:.3e}")
+
+
+def lm_train_resume():
+    """(d) train_loop on the card: 30 steps saving every 10, a resume to
+    45, against an uninterrupted 45-step run, losses bit for bit."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.configs.shapes import reduced_config
+    from repro_torch.launch.train import train_loop
+    root = os.path.join("build", f"lm_train_ckpt_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = reduced_config(LM_TRAIN_ARCH)
+    run = dict(batch_size=4, seq_len=32, dp=None, microbatches=2,
+               ckpt_every=10, device="cuda")
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, whole = train_loop(cfg, steps=45, ckpt_dir=os.path.join(root, "a"),
+                                  resume=False, **run)
+            _, first = train_loop(cfg, steps=30, ckpt_dir=os.path.join(root, "b"),
+                                  resume=False, **run)
+            _, rest = train_loop(cfg, steps=45, ckpt_dir=os.path.join(root, "b"),
+                                 resume=True, **run)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = first + rest == whole
+    print(f"[lm-train] train_loop resume on the card (reduced {LM_TRAIN_ARCH}, "
+          f"30 steps saving every 10, resumed to 45): steps 30-44 equal to an "
+          f"uninterrupted run's bit for bit {same}; losses {whole[0]:.6f} -> "
+          f"{whole[-1]:.6f}; {time.perf_counter() - t0:.3f} s")
+    if not same:
+        diff = [i for i, (a, b) in enumerate(zip(first + rest, whole)) if a != b]
+        raise AssertionError(f"resumed losses differ at steps {diff}")
+
+
+def lm_train_corpus(card):
+    """(e) examples/dp_corpus_stats_torch.py's main on the card."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "dp_corpus_stats_torch.py")
+    spec = importlib.util.spec_from_file_location("dp_corpus_stats_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    reset_chain_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tables, steps, report = mod.main([])
+    secs = time.perf_counter() - t0
+    counts = chain_stats()
+    print(f"[lm-train] dp_corpus_stats_torch: release + {steps} funded DP-SGD "
+          f"steps in {secs:.3f} s; accountant {report}; launches {counts} | "
+          f"{card}")
+    if not (steps == 3 and report["steps"] == 3
+            and counts["fused_launches"] > 0):
+        raise AssertionError(f"corpus example: {steps} steps, {counts}")
+    return counts
+
+
+def phase_lm_train(card):
+    """[lm-train] the LM plane's training path (repro_torch.train).
+
+    (a) Qwen3-4B at its published widths and full depth (4.411B float32
+    parameters, bf16 compute): 6 steps of make_train_step (2 microbatches,
+    remat "dots", AdamW float32 moments) on one batch of 8 x 128 tokens:
+    init seconds, step 1's seconds and steps 2-6's, tokens/s, peak device
+    memory, each step's loss and grad norm, device ms and kernel launches of
+    one more step (torch.profiler).  Gates: every loss and grad norm finite,
+    the sixth loss below the first, the first within rel 1e-5 of
+    make_eval_step on the initial weights over the whole batch, and the
+    first microbatch's eval loss alone (a planted lost microbatch) off the
+    whole batch's by more than that bound.
+    (b) DP-SGD on xLSTM-350M at full width (clip 1, sigma 1, 8 x 128 in 2
+    microbatches, 3 steps): seconds per step, peak memory, the accountant
+    (pcost 3).  Gates: the vmap per-example clipped mean equals a loop of 8
+    single-example clipped gradients within rel 1e-4 of each leaf's max, on
+    the first 2 layers at full width (float32 compute, TF32 off; deeper,
+    float32 rounding grows through the recurrences past that bound for
+    any two batchings, and tools/lm_dp_vmap_gap.py --float64 holds the 24
+    layers); the first step's noise over all 0.229B entries
+    has mean and std within 5 standard errors of 0 and C*sigma/B.
+    (c) All ten architectures at reduced_config: one train step on the card
+    against the CPU (loss, parameters, moments within rel 1e-4; float32,
+    TF32 off); reduced Qwen3-4B's DP clipped mean likewise.
+    (d) train_loop resume on the card: steps 30-44 bit for bit.
+    (e) examples/dp_corpus_stats_torch.py: exactly 3 funded steps, fused
+    kernel launches > 0 (counted in the kernels line)."""
+    t_phase = time.perf_counter()
+    lm_train_full(card)
+    lm_train_dp(card)
+    free_device_memory()
+    lm_train_card_cpu()
+    lm_train_resume()
+    counts = lm_train_corpus(card)
+    print(f"[lm-train] {time.perf_counter() - t_phase:.1f} s in all")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -2973,9 +3420,10 @@ def main() -> int:
     phase_serve_cli(card)
     baseline_counts = tuple(phase_hdmm_synth(card) + phase_hdmm_prefix(card))
     phase_lm_serve(card)
+    lm_train_counts = phase_lm_train(card)
     counts = (adult_counts, synth_counts) + rplus_counts + (
         tune_counts, bf16_counts) + secure_counts + release_counts \
-        + slice_counts + (serve_counts,) + baseline_counts
+        + slice_counts + (serve_counts,) + baseline_counts + (lm_train_counts,)
     launches = {"fused_chain": sum(c["fused_launches"] - c["narrow_launches"]
                                    for c in counts),
                 "fused_chain_bf16": sum(c["bf16_launches"] for c in counts),

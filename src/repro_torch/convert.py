@@ -8,7 +8,9 @@ run one plan with identical σ².  :func:`plus_plan_from_arrays` does the same
 for a ResidualPlanner+ plan, given besides each attribute's basic matrix W_i
 and strategy S_i.  :func:`lm_params_from_jax` and :func:`lm_caches_from_jax`
 carry an LM's parameters and caches across, from the JAX package's
-group-stacked trees to the port's one dict per layer group.  They take plain
+group-stacked trees to the port's one dict per layer group, and
+:func:`train_state_from_jax` a training state (parameters and AdamW
+moments).  They take plain
 data, never a JAX object: the port imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -141,3 +143,18 @@ def lm_caches_from_jax(cfg, caches: dict) -> dict:
     """The port's cache tree from the JAX package's group-stacked caches
     (as :func:`lm_params_from_jax` does for parameters), numpy leaves."""
     return _unstack_groups(caches, _group_counts(cfg))
+
+
+def train_state_from_jax(cfg, state: dict) -> dict:
+    """The port's training state from the JAX package's ``TrainState``
+    (nested dicts of numpy arrays): ``params`` as :func:`lm_params_from_jax`
+    splits them, the AdamW moments ``m`` and ``v`` (float32 leaves, or int8
+    ``{"q", "s"}`` pairs) split the same way, and ``count``.  The JAX
+    ``rng`` key is not carried across: the two packages draw from different
+    generators, and the port seeds its own (``init_train_state``)."""
+    counts = _group_counts(cfg)
+    opt = state["opt"]
+    return {"params": _unstack_groups(state["params"], counts),
+            "opt": {"m": _unstack_groups(opt["m"], counts),
+                    "v": _unstack_groups(opt["v"], counts),
+                    "count": np.asarray(opt["count"])}}

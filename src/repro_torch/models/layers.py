@@ -37,13 +37,33 @@ class PDef(NamedTuple):
     init: str = "normal"        # normal | zeros | ones
 
 
-def tree_map(fn, tree):
-    """``fn`` on every leaf of a nested dict/list tree."""
+def tree_map(fn, tree, *rest):
+    """``fn`` on every leaf of a nested dict/list tree (and on the matching
+    leaves of the trees ``rest``), keeping the structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict/list tree, dict keys in sorted order (the
+    order ``jax.tree_util`` flattens a dict in)."""
+    return list(tree_paths(tree).values())
+
+
+def tree_paths(tree, sep: str = "/", prefix: str = ""):
+    """``{path: leaf}`` of a nested dict/list tree, a path being the dict
+    keys and list indices down to the leaf joined by ``sep``, dict keys in
+    sorted order."""
+    if isinstance(tree, dict):
+        return {n: x for k in sorted(tree)
+                for n, x in tree_paths(tree[k], sep, f"{prefix}{k}{sep}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {n: x for i, v in enumerate(tree)
+                for n, x in tree_paths(v, sep, f"{prefix}{i}{sep}").items()}
+    return {prefix[:-len(sep)]: tree}
 
 
 def init_from_defs(defs, gen: torch.Generator, dtype=torch.float32,

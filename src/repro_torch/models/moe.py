@@ -63,7 +63,8 @@ def _route(x_flat, router_w, mo):
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balancing aux loss (local stats).
     E = mo.n_experts
-    density = F.one_hot(top_e[..., 0], E).float().mean(dim=0)
+    density = (top_e[..., :1] == torch.arange(E, device=top_e.device)) \
+        .float().mean(dim=0)
     prob_mean = probs.mean(dim=0)
     aux = E * torch.sum(density * prob_mean)
     return top_w, top_e, aux
@@ -80,7 +81,7 @@ def _moe_dense_fallback(p, x, cfg):
     u = torch.einsum("td,edf->tef", xf, p["w_u"].to(cdt))
     outs = torch.einsum("tef,efd->ted", h * u, p["w_o"].to(cdt))
     gates = torch.zeros((xf.shape[0], mo.n_experts), dtype=cdt,
-                        device=x.device).scatter_(1, top_e, top_w.to(cdt))
+                        device=x.device).scatter(1, top_e, top_w.to(cdt))
     y = torch.einsum("te,ted->td", gates, outs)
     if mo.n_shared:
         y = y + (F.silu(xf @ p["sh_g"].to(cdt))

@@ -1,6 +1,6 @@
 """Model assembly: the decoder over every block kind (+ an optional encoder),
-its caches, and the prefill / decode entry points: the port of
-``repro.models.transformer``'s serving path.
+its caches, and the training loss, prefill and decode entry points: the
+port of ``repro.models.transformer``.
 
 Layers come in pattern groups (``cfg.pattern`` repeated ``n_pattern_groups``
 times, plus an optional tail) as in the reference, but unstacked: the
@@ -10,8 +10,13 @@ parameter and cache trees hold one dict per group in a list (``blocks``,
 attention), and a Python loop over groups replaces ``jax.lax.scan``.
 
 :class:`Model` holds the parameters as modules (one :class:`Block` per
-layer) and runs on CUDA unless given ``device="cpu"``.  Two behaviours
-differ from the reference on purpose:
+layer) and runs on CUDA unless given ``device="cpu"``.  The parameters are
+registered without gradients; training switches them on
+(``repro_torch.train.make_train_step``), while ``prefill`` and
+``decode_step`` run under ``torch.inference_mode``.  Remat wraps each layer
+group in ``torch.utils.checkpoint`` as ``jax.checkpoint`` wraps the
+reference's scan body, with the policy :func:`set_remat_policy` picks.  Two
+behaviours differ from the reference on purpose:
 
 * ``prefill(batch, cache_len)`` pads the self-attention caches (``k``,
   ``v`` of ``attn``/``attn_local``, ``c_kv`` of ``mla``) to ``cache_len``
@@ -24,12 +29,15 @@ differ from the reference on purpose:
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 
@@ -295,6 +303,37 @@ def _group_step(cfg: ModelConfig, pattern, group: "ParamTree", x, gcache, *,
     return x, (new_caches or None), aux_total
 
 
+# Remat policies: what a layer group keeps for its backward pass; the rest
+# is recomputed.  "dots" keeps the outputs of the un-batched matrix products
+# (``x @ W`` reaches ``aten.mm``; the attention einsums reach ``aten.bmm``),
+# as ``dots_with_no_batch_dims_saveable`` does.  "dots+kv" also keeps the
+# K/V the reference names "kv" for its all-gather; on one device those are
+# reshaped ``mm`` outputs already, so it keeps what "dots" keeps.  "nothing"
+# keeps only the group's inputs.
+_SAVE_MM = partial(create_selective_checkpoint_contexts,
+                   [torch.ops.aten.mm.default])
+_REMAT_POLICIES = {"dots": _SAVE_MM, "dots+kv": _SAVE_MM, "nothing": None}
+_ACTIVE_REMAT_POLICY = ["dots"]
+
+
+def set_remat_policy(name: str):
+    assert name in _REMAT_POLICIES, name
+    _ACTIVE_REMAT_POLICY[0] = name
+
+
+def _remat_group(cfg: ModelConfig, pattern, group: "ParamTree", x, enc_out):
+    """One layer group of a training forward under ``torch.utils.checkpoint``
+    with the active policy.  Returns (x, aux)."""
+    def run(x, enc_out):
+        x, _, aux = _group_step(cfg, pattern, group, x, None, mode="train",
+                                pos=None, enc_out=enc_out)
+        return x, aux
+
+    context_fn = _REMAT_POLICIES[_ACTIVE_REMAT_POLICY[0]]
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(run, x, enc_out, use_reentrant=False, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
@@ -373,8 +412,8 @@ def _check_layout(defs, tree, path="params"):
 
 
 class Model(ParamTree):
-    """A decoder (+ encoder) of the config's block kinds, serving prefill
-    and cached greedy decode.
+    """A decoder (+ encoder) of the config's block kinds: its training
+    loss, prefill and cached greedy decode.
 
     Build it with :meth:`init` (weights drawn from a seeded generator) or
     :meth:`from_params` (a parameter tree of numpy arrays or tensors, such
@@ -436,7 +475,7 @@ class Model(ParamTree):
                                   mode="train", pos=None)
         return rms_norm(x, self.encoder_norm, cfg.norm_eps)
 
-    def _trunk(self, x, caches, *, mode, pos, enc_out):
+    def _trunk(self, x, caches, *, mode, pos, enc_out, remat=False):
         cfg = self.cfg
         collect = mode in ("prefill", "decode")
         new_caches: Dict[str, Any] = {}
@@ -446,11 +485,14 @@ class Model(ParamTree):
             if not hasattr(self, gk):
                 continue
             out = []
+            enc = enc_out if gk == "blocks" else None
             for g, group in enumerate(getattr(self, gk)):
-                gcache = None if caches is None else caches[gk][g]
-                x, nc, a = _group_step(cfg, pattern, group, x, gcache,
-                                       mode=mode, pos=pos,
-                                       enc_out=enc_out if gk == "blocks" else None)
+                if remat:
+                    (x, a), nc = _remat_group(cfg, pattern, group, x, enc), None
+                else:
+                    gcache = None if caches is None else caches[gk][g]
+                    x, nc, a = _group_step(cfg, pattern, group, x, gcache,
+                                           mode=mode, pos=pos, enc_out=enc)
                 aux = aux + a
                 out.append(nc)
             if collect:
@@ -462,6 +504,33 @@ class Model(ParamTree):
         return x @ self.lm_head.to(x.dtype)
 
     # -- entry points --------------------------------------------------------
+    def loss_fn(self, batch, *, remat: bool = True,
+                aux_weight: float = 0.01) -> torch.Tensor:
+        """Mean next-token cross entropy in float32 over the positions whose
+        ``labels`` (already shifted) are >= 0, plus ``aux_weight`` times the
+        MoE routers' load-balancing loss.  ``batch`` holds what
+        :meth:`prefill` takes and ``labels`` (B, S); with ``remat`` each
+        layer group is recomputed in the backward pass under the active
+        remat policy."""
+        cfg = self.cfg
+        enc_out = self._encode(batch) if cfg.encoder_layers else None
+        x = self._embed(batch)
+        x, _, aux = self._trunk(x, None, mode="train", pos=None,
+                                enc_out=enc_out, remat=remat)
+        logits = self._logits(x).float()
+        labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        nll = torch.sum((lse - gold) * mask) / mask.sum().clamp_min(1.0)
+        return nll + aux_weight * aux
+
+    def forward(self, batch):
+        """The training loss without remat, :meth:`loss_fn`: what
+        ``torch.func.functional_call`` calls, and ``torch.func.grad``
+        refuses the saved-tensor hooks that remat works through."""
+        return self.loss_fn(batch, remat=False)
+
     @torch.inference_mode()
     def prefill(self, batch, cache_len: Optional[int] = None):
         """Run the prompt; returns (last-position logits (B, 1, V), caches).

@@ -941,3 +941,72 @@ def test_lm_model_and_example_default_to_cuda(cuda):
     toks, stats = serve.main(["--reduced", "--batch", "2", "--prompt-len", "8",
                               "--gen", "3"])
     assert toks.shape == (2, 3) and stats["decode_tok_per_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The LM plane's training path (repro_torch.train) on the card
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_REL = 1e-4   # of each leaf's max, float32 with TF32 off
+
+
+def _train_step_on(model, batch, remat_policy="dots"):
+    from repro_torch.models import transformer
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_step import init_train_state
+    # eps 1e-4 bounds Adam's first-step amplification of a gradient's
+    # rounding at 1e4 (tests/test_torch_train.py)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=20, eps=1e-4)
+    transformer.set_remat_policy(remat_policy)
+    state, metrics = make_train_step(model, oc, microbatches=2, remat=True)(
+        init_train_state(model, oc), batch)
+    return state, float(metrics["loss"])
+
+
+@pytest.mark.parametrize("arch", [
+    "xlstm-350m", "recurrentgemma-2b", "qwen2.5-14b", "qwen1.5-32b", "yi-34b",
+    "qwen3-4b", "kimi-k2-1t-a32b", "deepseek-v2-236b", "chameleon-34b",
+    "whisper-small"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step (2 microbatches, "dots" remat) of one set of weights on
+    the card and on the CPU: the loss, every updated parameter and every
+    moment."""
+    from repro_torch.configs import load_all
+    from repro_torch.configs.shapes import reduced_config
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    load_all()
+    cpu = Model.init(reduced_config(arch), torch.Generator().manual_seed(0),
+                     device="cpu")
+    card = Model.from_params(cpu.cfg, cpu.tree(), device=cuda)
+    batch = _lm_batch(cpu, 4, 16, seed=2)
+    batch["labels"] = torch.randint(0, cpu.cfg.vocab_size, (4, 16),
+                                    generator=torch.Generator().manual_seed(3))
+    want, wl = _train_step_on(cpu, batch)
+    got, gl = _train_step_on(card, {k: v.to(cuda) for k, v in batch.items()})
+    assert abs(gl - wl) <= LM_TRAIN_REL * abs(wl)
+    for part in ("params", "opt"):
+        for g, w in zip(tree_leaves(got[part]), tree_leaves(want[part]),
+                        strict=True):
+            if g.dtype.is_floating_point:
+                assert g.device.type == "cuda"
+                assert _rel(g.detach().cpu(), w.detach()) < LM_TRAIN_REL, part
+
+
+def test_lm_train_loop_resume_on_card_bit_for_bit(cuda, tmp_path):
+    """train_loop on the card: 30 steps with a checkpoint every 10, then a
+    resume to 45, against an uninterrupted 45-step run."""
+    from repro_torch.configs import load_all
+    from repro_torch.configs.shapes import reduced_config
+    from repro_torch.launch.train import train_loop
+    load_all()
+    cfg = reduced_config("qwen3-4b")
+    run = dict(batch_size=4, seq_len=32, dp=None, microbatches=2,
+               ckpt_every=10, device="cuda")
+    _, whole = train_loop(cfg, steps=45, ckpt_dir=str(tmp_path / "a"),
+                          resume=False, **run)
+    _, first = train_loop(cfg, steps=30, ckpt_dir=str(tmp_path / "b"),
+                          resume=False, **run)
+    _, rest = train_loop(cfg, steps=45, ckpt_dir=str(tmp_path / "b"),
+                         resume=True, **run)
+    assert first + rest == whole

@@ -117,11 +117,15 @@ def test_port_imports_neither_jax_nor_repro():
             " repro_torch.models, repro_torch.models.config,"
             " repro_torch.models.layers, repro_torch.models.recurrent,"
             " repro_torch.models.moe, repro_torch.models.transformer,"
-            " repro_torch.configs.shapes, repro_torch.data.tokens;"
+            " repro_torch.configs.shapes, repro_torch.data.tokens,"
+            " repro_torch.train, repro_torch.train.optimizer,"
+            " repro_torch.train.dp, repro_torch.train.train_step,"
+            " repro_torch.train.checkpoint, repro_torch.launch.train;"
             " repro_torch.configs.load_all();"
             " repro_torch.analysis.kernel_limits();"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
+            " ('jax', 'jaxlib', 'repro', 'ml_dtypes')); print(bad);"
+            " sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(SRC),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
