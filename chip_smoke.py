@@ -153,7 +153,21 @@ Phases, in order; any failure exits non-zero:
    architectures, one step on the card against the CPU (rel 1e-4);
    train_loop resumed bit for bit; examples/dp_corpus_stats_torch.py with
    exactly 3 funded steps and fused launches > 0.
-29. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+29. [lm-mesh] the LM plane's multi-device serving path
+   (repro_torch.models.sharding, repro_torch.launch.mesh): DeepSeek-V2-236B
+   at published width, 4 of 60 layers (seeded bf16 weights), 2 prompts of
+   512 tokens and 8 decode steps; the no-mesh model on card 0 at float32
+   first, then one NCCL rank per visible card up to four ((1, 4) and
+   (2, 2) on four cards, (1, 1) through a one-rank group on one): at
+   float32 and capacity factor 8 the mesh's logits within rel 1e-4 of the
+   no-mesh run's with 0 dropped pairs and the expert-parallel bodies
+   counted (model axis > 1); at bf16 and capacity factor 1.25 prefill
+   seconds, decode tokens/s, peak memory per rank, dropped pairs, NCCL
+   device ms of a decode step and all_to_all bytes.  On more than one card
+   Qwen3-4B at published width (4 of 36 layers) runs the same parity gate
+   on each mesh in both attention modes (DeepSeek-V2's MLA reads none).
+   No kernel of the port runs here either.
+30. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
 
@@ -3339,6 +3353,412 @@ def phase_lm_train(card):
     return counts
 
 
+# [lm-mesh]: the LM plane's multi-device serving path.  DeepSeek-V2-236B at
+# its published width (d 5120, 128 MLA heads, kv_lora 512, 160 experts top
+# 6, d_expert 1536, 2 shared, vocabulary 102,400), its depth cut from 60 to
+# 4 layers (17.09B parameters, 34.2 GB at bf16: one card holds it, which
+# gives the no-mesh comparison), seeded bf16 weights; 2 prompts of 512
+# tokens, 8 greedy decode steps.  Its MLA reads no attention sharding mode
+# (as the reference's), so on more than one card Qwen3-4B at published
+# width (GQA, 32 heads over 8 KV heads, d 2560, vocabulary 151,936), 4 of
+# 36 layers, runs the parity gate in both modes: 'seq' and the padded-head
+# 'heads' region with its all-reduce over 'model'.
+LM_MESH_ARCH = "deepseek-v2-236b"
+LM_MESH_LAYERS = 4
+LM_MESH_GQA = "qwen3-4b"
+LM_MESH_GQA_LAYERS = 4
+LM_MESH_B, LM_MESH_S, LM_MESH_STEPS = 2, 512, 8
+LM_MESH_REL = 1e-4       # of max|logit|: mesh vs no mesh, float32 compute
+# A capacity factor at which nothing drops at these shapes: prefill stage 1
+# needs cap1 >= t*k (4 at (1, 4), 2 at (2, 2)); decode at (2, 2) holds 80
+# experts a rank and 2 tokens, so cap = ceil(12 / 80 * cf) >= 2 needs 8.
+LM_MESH_PARITY_CF = 8.0
+LM_MESH_TIMEOUT = 900    # seconds for the ranks to finish
+
+
+def lm_mesh_config(layers, compute_dtype="bfloat16", capacity_factor=None,
+                   arch=LM_MESH_ARCH):
+    """``arch`` at published width, ``layers`` deep."""
+    import dataclasses
+    from repro_torch.configs import load_all
+    from repro_torch.models import get_config
+    load_all()
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              compute_dtype=compute_dtype)
+    if capacity_factor is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def lm_mesh_meshes(world):
+    """The meshes a run of ``world`` ranks serves on."""
+    if world == 1:
+        return [(1, 1)]
+    return [(1, world)] + ([(2, world // 2)] if world % 2 == 0 else [])
+
+
+def lm_mesh_retarget(model, cfg):
+    """Point the model and each of its blocks at ``cfg`` (compute dtype,
+    capacity factor); the weights stay."""
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = cfg
+
+
+def lm_mesh_prompt(cfg):
+    rng = np.random.default_rng(SEED)
+    return rng.integers(0, cfg.vocab_size,
+                        (LM_MESH_B, LM_MESH_S)).astype(np.int64)
+
+
+def lm_mesh_a2a_bytes(cfg, shape):
+    """Bytes one prefill all_to_all of activations moves out of each rank:
+    cap1 rows of d bf16 values for each of the n_shards ranks, cap1 from the
+    tokens a rank dispatches (its sequence chunk, gathered over data)."""
+    nd, n = shape
+    if n == 1:
+        return 0
+    t = LM_MESH_B * LM_MESH_S // n
+    cap1 = math.ceil(t * cfg.moe.top_k / n * cfg.moe.capacity_factor)
+    return cap1 * cfg.d_model * 2 * n
+
+
+def lm_mesh_serve(model, tokens, steps, forced=None):
+    """Prefill ``tokens`` and decode ``steps`` tokens (greedy, or the
+    ``forced`` ones).  Returns (prefill logits, [decode logits], tokens)."""
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    logits, caches = model.prefill(batch, cache_len=LM_MESH_S + steps)
+    out, toks = [], []
+    cur = logits
+    for t in range(steps):
+        tok = (cur[:, -1].argmax(-1)[:, None] if forced is None
+               else torch.as_tensor(forced[t], device="cuda"))
+        toks.append(tok.cpu().numpy())
+        cur, caches = model.decode_step(tok, caches, LM_MESH_S + t)
+        out.append(cur)
+    return logits, out, toks
+
+
+def lm_mesh_run(arch, shape, layers, modes, bf16):
+    """One run of ``_lm_mesh_rank``: ``arch`` ``layers`` deep on a mesh of
+    ``shape``, the parity gate in each attention mode of ``modes`` (where
+    the job has the arch's no-mesh reference), then the bf16 measurements
+    when ``bf16``."""
+    return {"arch": arch, "shape": list(shape), "layers": layers,
+            "modes": list(modes), "bf16": bf16}
+
+
+def _lm_mesh_rank(rank, world, store, job, out_path):
+    """One NCCL rank of [lm-mesh] (spawned): for each run, the seeded model
+    placed on its mesh; at float32 compute and LM_MESH_PARITY_CF the prompt
+    prefilled and the reference's tokens decoded in each attention mode,
+    its logits held against the no-mesh run's; then, for a bf16 run, at
+    bf16 and the config's capacity factor: prefill seconds, decode
+    tokens/s, peak memory, dropped pairs, NCCL device ms of one decode
+    step.  Rank 0 writes what it measured to ``out_path``."""
+    import datetime
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe import moe_stats, reset_moe_stats
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    report = {"world": world, "runs": []}
+
+    def summed(vals):
+        t = torch.tensor(vals, dtype=torch.float64, device="cuda")
+        dist.all_reduce(t)
+        return t.tolist()
+
+    def gathered(val):
+        out = [None] * world
+        dist.all_gather_object(out, val)
+        return out
+
+    try:
+        for spec in job["runs"]:
+            arch, shape, layers = spec["arch"], tuple(spec["shape"]), spec["layers"]
+            ref_path = job["refs"].get(arch)
+            ref = np.load(ref_path) if ref_path else None
+            mesh = make_host_mesh("cuda", shape)
+            cfg = lm_mesh_config(layers, arch=arch)
+            tokens = lm_mesh_prompt(cfg)
+            free_device_memory()
+            t0 = time.perf_counter()
+            model = Model.init(cfg, cuda_gen(), mesh=mesh)
+            torch.cuda.synchronize()
+            run = {"arch": arch, "shape": list(shape), "layers": layers,
+                   "moe": cfg.moe is not None,
+                   "init_s": time.perf_counter() - t0, "parity": {}}
+            if ref is not None:
+                lm_mesh_retarget(model, lm_mesh_config(
+                    layers, "float32", LM_MESH_PARITY_CF, arch))
+                for mode in spec["modes"]:
+                    L.set_attn_sharding(mode)
+                    reset_moe_stats()
+                    try:
+                        logits, dec, _ = lm_mesh_serve(
+                            model, tokens, LM_MESH_STEPS, forced=ref["tokens"])
+                    finally:
+                        L.set_attn_sharding("seq")
+                    st = moe_stats()
+                    counts = summed([st["ep_dispatch"], st["ep_replicated"],
+                                     st["dense"], st["dropped"]])
+                    errs = [rel_err(logits.cpu(), torch.as_tensor(ref["prefill"]))]
+                    errs += [rel_err(d.cpu(), torch.as_tensor(ref["decode"][i]))
+                             for i, d in enumerate(dec)]
+                    run["parity"][mode] = {
+                        "prefill_rel": errs[0], "decode_rel": max(errs[1:]),
+                        "ep_dispatch": counts[0], "ep_replicated": counts[1],
+                        "dense": counts[2], "dropped": counts[3]}
+                    del logits, dec
+            if spec["bf16"]:
+                lm_mesh_retarget(model, cfg)
+                reset_moe_stats()
+                free_device_memory()
+                torch.cuda.reset_peak_memory_stats()
+                batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+                secs = []
+                for _ in range(2):
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, caches = model.prefill(
+                        batch, cache_len=LM_MESH_S + LM_MESH_STEPS + 3)
+                    torch.cuda.synchronize()
+                    dist.barrier()
+                    secs.append(time.perf_counter() - t0)
+                prefill_stats = moe_stats()
+                tok = logits[:, -1].argmax(-1)[:, None]
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = []
+                for t in range(LM_MESH_STEPS):
+                    cur, caches = model.decode_step(tok, caches, LM_MESH_S + t)
+                    tok = cur[:, -1].argmax(-1)[:, None]
+                    toks.append(tok)
+                torch.cuda.synchronize()
+                dist.barrier()
+                dec_s = time.perf_counter() - t0
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    cur, caches = model.decode_step(tok, caches,
+                                                    LM_MESH_S + LM_MESH_STEPS)
+                    torch.cuda.synchronize()
+                kern = [ev for ev in prof.key_averages()
+                        if ev.self_device_time_total > 0
+                        and not ev.key.startswith(("Memcpy", "Memset"))]
+                nccl = sum(ev.self_device_time_total for ev in kern
+                           if "nccl" in ev.key.lower()) / 1e3
+                dev = sum(ev.self_device_time_total for ev in kern) / 1e3
+                finite = bool(torch.isfinite(logits).all()
+                              and torch.isfinite(cur).all())
+                st = moe_stats()
+                counts = summed([st["ep_dispatch"], st["ep_replicated"],
+                                 st["dense"], prefill_stats["dropped"] / 2.0,
+                                 st["dropped"]])
+                run["bf16"] = {
+                    "prefill_s": secs, "decode_tokens_per_s":
+                        LM_MESH_B * LM_MESH_STEPS / dec_s,
+                    "decode_step_ms": dec_s / LM_MESH_STEPS * 1e3,
+                    "peak_gib": gathered(
+                        torch.cuda.max_memory_allocated() / 2**30),
+                    "card_gib": torch.cuda.get_device_properties(
+                        torch.cuda.current_device()).total_memory / 2**30,
+                    "nccl_ms": gathered(nccl), "device_ms": gathered(dev),
+                    "ep_dispatch": counts[0], "ep_replicated": counts[1],
+                    "dense": counts[2], "dropped_prefill": counts[3],
+                    "dropped_all": counts[4], "finite": finite,
+                    "logits_shape": list(logits.shape),
+                    "a2a_bytes": lm_mesh_a2a_bytes(cfg, shape),
+                    "tokens": torch.cat(toks, 1).cpu().tolist()}
+                del logits, caches, cur
+            report["runs"].append(run)
+            del model
+            free_device_memory()
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_mesh_reference(ref_path, arch=LM_MESH_ARCH, layers=LM_MESH_LAYERS):
+    """The no-mesh run on card 0 at float32 compute and LM_MESH_PARITY_CF:
+    prefill logits, 8 greedy tokens and their decode logits, to the host
+    (``ref_path``); the model is freed."""
+    from repro_torch.models import Model
+    cfg = lm_mesh_config(layers, "float32", LM_MESH_PARITY_CF, arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model.init(cfg, cuda_gen(), device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    logits, dec, toks = lm_mesh_serve(model, lm_mesh_prompt(cfg), LM_MESH_STEPS)
+    np.savez(ref_path, prefill=logits.float().cpu().numpy(),
+             decode=np.stack([d.float().cpu().numpy() for d in dec]),
+             tokens=np.stack(toks))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, logits, dec
+    free_device_memory()
+    return n_params, secs, peak
+
+
+def lm_mesh_spawn(job, world, tag):
+    """Run ``_lm_mesh_rank`` on ``world`` spawned NCCL ranks (a FileStore
+    under build/); returns rank 0's report.  Any rank that fails or outlives
+    LM_MESH_TIMEOUT fails the phase."""
+    import torch.multiprocessing as mp
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.makedirs("build", exist_ok=True)
+    store = os.path.join("build", f"lm_mesh_store_{tag}_{os.getpid()}")
+    out = os.path.join("build", f"lm_mesh_{tag}_{os.getpid()}.json")
+    for f in (store, out):
+        if os.path.exists(f):
+            os.remove(f)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_lm_mesh_rank, args=(r, world, store, job, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + LM_MESH_TIMEOUT
+    for p in procs:
+        p.join(timeout=max(deadline - time.time(), 1))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.terminate()
+        p.join(10)
+    if os.path.exists(store):
+        os.remove(store)
+    if hung or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"[lm-mesh] ranks failed: exit codes "
+                             f"{[p.exitcode for p in procs]}"
+                             + (" (timed out)" if hung else ""))
+    with open(out) as f:
+        report = json.load(f)
+    os.remove(out)
+    return report
+
+
+def lm_mesh_print(report, gates=True):
+    """Print a report of ``_lm_mesh_rank`` and hold it to the gates."""
+    world = report["world"]
+    for run in report["runs"]:
+        shape = tuple(run["shape"])
+        ep_expected = run["moe"] and shape[1] > 1
+        tag = (f"[lm-mesh] world {world} mesh {shape} {run['arch']} "
+               f"{run['layers']} layers")
+        print(f"{tag}: init {run['init_s']:.1f} s")
+        for mode, par in run["parity"].items():
+            print(f"{tag} float32 cf {LM_MESH_PARITY_CF} attention '{mode}': "
+                  f"prefill rel {par['prefill_rel']:.3e}, decode rel "
+                  f"{par['decode_rel']:.3e} (bound {LM_MESH_REL}); dropped "
+                  f"{par['dropped']:.0f}; EP dispatch/replicated/dense calls "
+                  f"{par['ep_dispatch']:.0f}/{par['ep_replicated']:.0f}/"
+                  f"{par['dense']:.0f}")
+            if gates:
+                assert par["prefill_rel"] < LM_MESH_REL, par
+                assert par["decode_rel"] < LM_MESH_REL, par
+                assert par["dropped"] == 0, par
+                if ep_expected:
+                    assert par["ep_dispatch"] > 0 and par["ep_replicated"] > 0 \
+                        and par["dense"] == 0, par
+                elif run["moe"]:
+                    assert par["ep_dispatch"] == 0 and par["ep_replicated"] == 0 \
+                        and par["dense"] > 0, par
+        if "bf16" not in run:
+            continue
+        b = run["bf16"]
+        vocab = lm_mesh_config(1, arch=run["arch"]).vocab_size
+        print(f"{tag} bf16 cf {lm_mesh_config(1).moe.capacity_factor}: "
+              f"prefill {b['prefill_s'][0]:.3f} s first, "
+              f"{b['prefill_s'][1]:.3f} s second; decode "
+              f"{b['decode_tokens_per_s']:.1f} tokens/s "
+              f"({b['decode_step_ms']:.2f} ms a step); peak GiB per rank "
+              f"{[round(g, 3) for g in b['peak_gib']]} of "
+              f"{b['card_gib']:.1f}; dropped pairs {b['dropped_prefill']:.0f} "
+              f"in a prefill, {b['dropped_all']:.0f} in all; one decode step's "
+              f"device ms per rank {[round(x, 3) for x in b['device_ms']]}, "
+              f"of it NCCL {[round(x, 3) for x in b['nccl_ms']]}; "
+              f"all_to_all bytes out of a rank per dispatch {b['a2a_bytes']:,}; "
+              f"EP dispatch/replicated/dense calls {b['ep_dispatch']:.0f}/"
+              f"{b['ep_replicated']:.0f}/{b['dense']:.0f}")
+        if run["moe"] and not ep_expected:
+            print(f"{tag}: model axis 1, so the expert-parallel bodies did not "
+                  f"run (the dense path, as the reference's)")
+        if gates:
+            assert b["finite"] and b["logits_shape"] == [LM_MESH_B, 1, vocab], b
+            if ep_expected:
+                assert b["ep_dispatch"] > 0 and b["ep_replicated"] > 0 \
+                    and b["dense"] == 0, b
+
+
+def phase_lm_mesh(card):
+    """[lm-mesh] the LM plane's multi-device serving path
+    (repro_torch.models.sharding, repro_torch.launch.mesh).
+
+    DeepSeek-V2-236B at published width, 4 of 60 layers, seeded bf16
+    weights; 2 prompts of 512 tokens, 8 decode steps.  First the no-mesh
+    model on card 0 at float32 compute and capacity factor 8 (prefill
+    logits, 8 greedy tokens and their logits to the host; freed).  Then one
+    NCCL rank per visible card, up to four (a FileStore under build/,
+    NCCL_SOCKET_IFNAME=lo, 120 s timeouts): on four cards (1, 4) and
+    (2, 2), on one card (1, 1) through a one-rank group, where the model
+    axis is 1 and the expert-parallel bodies do not run.  DeepSeek-V2's MLA
+    reads no attention sharding mode, so it runs 'seq'; on more than one
+    card Qwen3-4B at published width, 4 of 36 layers, runs the parity gate
+    on each mesh in both modes ('seq', and 'heads' with its padded-head
+    region and all-reduce), against its own no-mesh run on card 0.  Gates:
+    at float32 (and capacity factor 8) the mesh's prefill logits and its 8
+    decode steps (the reference's tokens fed) within rel 1e-4 of max|logit|
+    of the no-mesh run, 0 dropped pairs, the EP bodies counted (none and
+    the dense path counted at model axis 1); at bf16 and the config's
+    capacity factor 1.25, finite logits of the right shape.  Printed for
+    DeepSeek-V2: prefill seconds, decode tokens/s, peak memory per rank,
+    dropped pairs (each counted once over the mesh), one decode step's
+    device ms and NCCL ms per rank (by kernel name, torch.profiler), the
+    bytes one prefill all_to_all moves out of a rank (cap1 x d x 2 B x
+    n_shards)."""
+    t_phase = time.perf_counter()
+    world = min(torch.cuda.device_count(), 4)
+    os.makedirs("build", exist_ok=True)
+    archs = [(LM_MESH_ARCH, LM_MESH_LAYERS, 60)]
+    if world > 1:
+        archs.append((LM_MESH_GQA, LM_MESH_GQA_LAYERS, 36))
+    refs = {}
+    try:
+        for arch, layers, depth in archs:
+            refs[arch] = os.path.join("build", f"lm_mesh_ref_{arch}_{os.getpid()}.npz")
+            n_params, ref_s, ref_peak = lm_mesh_reference(refs[arch], arch, layers)
+            print(f"[lm-mesh] {arch} at published width, {layers} of {depth} "
+                  f"layers: {n_params / 1e9:.3f}B parameters; no-mesh float32 "
+                  f"run on card 0 (prefill {LM_MESH_B} x {LM_MESH_S}, "
+                  f"{LM_MESH_STEPS} greedy steps) {ref_s:.1f} s, peak "
+                  f"{ref_peak:.3f} GiB")
+        runs = [lm_mesh_run(LM_MESH_ARCH, shape, LM_MESH_LAYERS, ("seq",), True)
+                for shape in lm_mesh_meshes(world)]
+        if world > 1:
+            runs += [lm_mesh_run(LM_MESH_GQA, shape, LM_MESH_GQA_LAYERS,
+                                 ("seq", "heads"), False)
+                     for shape in lm_mesh_meshes(world)]
+        report = lm_mesh_spawn({"refs": refs, "runs": runs}, world, "smoke")
+    finally:
+        for path in refs.values():
+            if os.path.exists(path):
+                os.remove(path)
+    lm_mesh_print(report)
+    print(f"[lm-mesh] world {world}: {time.perf_counter() - t_phase:.1f} s in all")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -3421,6 +3841,8 @@ def main() -> int:
     baseline_counts = tuple(phase_hdmm_synth(card) + phase_hdmm_prefix(card))
     phase_lm_serve(card)
     lm_train_counts = phase_lm_train(card)
+    free_device_memory()
+    phase_lm_mesh(card)
     counts = (adult_counts, synth_counts) + rplus_counts + (
         tune_counts, bf16_counts) + secure_counts + release_counts \
         + slice_counts + (serve_counts,) + baseline_counts + (lm_train_counts,)

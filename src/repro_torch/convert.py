@@ -130,19 +130,38 @@ def _group_counts(cfg) -> dict:
             "encoder_blocks": cfg.encoder_layers}
 
 
-def lm_params_from_jax(cfg, params: dict) -> dict:
+def lm_params_from_jax(cfg, params: dict, mesh=None) -> dict:
     """The port's parameter tree for an LM config, from the JAX package's
     ``Model.init`` pytree given as nested dicts of numpy arrays: each leaf
     of ``blocks``, ``tail_blocks`` and ``encoder_blocks`` is split along
     its leading group axis into one dict per group.  Feed the result to
-    :meth:`repro_torch.models.Model.from_params`."""
-    return _unstack_groups(params, _group_counts(cfg))
+    :meth:`repro_torch.models.Model.from_params`.  With ``mesh`` (every
+    rank passing the same arrays) each leaf is a DTensor on the mesh's
+    device type, placed by its ``PDef`` axes."""
+    from repro_torch.models.transformer import model_defs
+    tree = _unstack_groups(params, _group_counts(cfg))
+    return tree if mesh is None else _on_mesh(tree, model_defs(cfg), mesh)
 
 
-def lm_caches_from_jax(cfg, caches: dict) -> dict:
+def lm_caches_from_jax(cfg, caches: dict, mesh=None) -> dict:
     """The port's cache tree from the JAX package's group-stacked caches
-    (as :func:`lm_params_from_jax` does for parameters), numpy leaves."""
-    return _unstack_groups(caches, _group_counts(cfg))
+    (as :func:`lm_params_from_jax` does for parameters), numpy leaves; with
+    ``mesh``, DTensors placed by the port's ``cache_axes``."""
+    from repro_torch.models.transformer import cache_defs
+    tree = _unstack_groups(caches, _group_counts(cfg))
+    return tree if mesh is None else _on_mesh(tree, cache_defs(cfg, 1, 1),
+                                              mesh)
+
+
+def _on_mesh(tree, defs, mesh):
+    """Each numpy leaf of ``tree`` as a DTensor placed by the axes of the
+    matching PDef leaf of ``defs``."""
+    import torch
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.sharding import distribute, param_spec
+    return tree_map(lambda a, pd: distribute(
+        torch.tensor(np.asarray(a), device=mesh.device_type),
+        param_spec(mesh, pd.axes)), tree, defs)
 
 
 def train_state_from_jax(cfg, state: dict) -> dict:

@@ -9,8 +9,10 @@ Runs on CUDA unless ``--device cpu``.  The loop runs without remat, as the
 reference's does, so at full width one NVIDIA H100 80GB HBM3 trains the
 smaller models only: Qwen3-4B's float32 parameters, gradients and moments
 alone take 65.7 GiB, and its saved bf16 weight casts do not fit beside
-them.  The reference's ``sharding_rules`` context and its ``mesh``
-argument do nothing on one device and are not ported.  Three behaviours differ from the reference on purpose:
+them.  Training runs on one device: the reference's ``mesh`` argument and
+its ``sharding_rules`` context around the step wait for training on a mesh
+(ROADMAP item 15; serving on a mesh is ported, ``Model.init(...,
+mesh=)``).  Three behaviours differ from the reference on purpose:
 
 * ``--reduced`` can be switched off (``--no-reduced``): the reference
   declares it ``store_true`` with ``default=True``, so its full-config

@@ -9,11 +9,26 @@ compute dtype on use, attention scores and softmax in float32 (the
 reference's ``preferred_element_type``), norms and RoPE angles in float32.
 Attention stays plain torch ops, as the reference's is jnp, not Pallas.
 
-The reference's logical-axis sharding constraints do nothing on one device
-and are dropped here.  One behaviour differs on purpose:
-:func:`blockwise_attention` masks its KV padding in causal mode too (the
-reference masks it only when ``causal=False``, so zero-padded keys enter
-every causal softmax whose length is not a multiple of ``kv_block``).
+On a mesh (DTensor inputs) the attention blocks run as regions over local
+shards with explicit collectives over ``model``, where the reference puts
+its logical-axis constraints: 'seq' mode splits the query rows
+(``seq_shard``) and gathers the output rows; 'heads' mode
+(:func:`set_attn_sharding`) pads the GQA groups to G' (:func:`_heads_padding`),
+repeats K/V, splits the padded heads (``heads_shard``) and adds the
+partial outputs; a decode step writes its slot on the rank that holds it
+and runs split-K over the cache length (``kv_seq``), its softmax max and
+sums taken across ranks.  :func:`swiglu_apply` shards d_ff over ``model``
+(``dff``).  Two behaviours differ from the reference on purpose:
+
+* :func:`blockwise_attention` masks its KV padding in causal mode too (the
+  reference masks it only when ``causal=False``, so zero-padded keys enter
+  every causal softmax whose length is not a multiple of ``kv_block``).
+* The padded-head path pads ``wo`` group by group, as the queries are
+  padded; the reference appends its zero ``wo`` rows after the last head,
+  so with more than one KV head padded and real heads meet the wrong rows.
+  Its prefill cache is the unrepeated K/V (Hkv heads, the layout
+  ``cache_defs`` and the decode step use); the reference's holds the
+  repeated Hkv·G' heads.
 """
 from __future__ import annotations
 
@@ -26,6 +41,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 
 from .config import torch_dtype
+from .sharding import (ACT, all_gather_dim, all_reduce, axis_rank, axis_size,
+                       chunk_bounds, current_mesh, is_dtensor, mixer_region,
+                       region)
 
 NEG_POS = -(10 ** 9)   # position of a KV pad slot: before every query
 
@@ -67,11 +85,12 @@ def tree_paths(tree, sep: str = "/", prefix: str = ""):
 
 
 def init_from_defs(defs, gen: torch.Generator, dtype=torch.float32,
-                   device=None):
+                   device=None, place=None):
     """Materialize a tree of PDef leaves on ``device``: normal leaves drawn
     from ``gen`` (on the same device) with std ``scale/√fan_in``, fan_in the
     second-to-last axis (the last of a vector), one leaf after another with
-    dict keys in sorted order."""
+    dict keys in sorted order.  ``place(pdef, tensor)``, when given, maps
+    each leaf as soon as it is drawn (a mesh keeps its shard of it)."""
     dev = resolve_device(device)
 
     def make(pd: PDef) -> torch.Tensor:
@@ -91,7 +110,7 @@ def init_from_defs(defs, gen: torch.Generator, dtype=torch.float32,
             return {k: drawn[k] for k in t}
         if isinstance(t, list):
             return [build(v) for v in t]
-        return make(t)
+        return make(t) if place is None else place(t, make(t))
 
     return build(defs)
 
@@ -280,10 +299,54 @@ def attn_defs(cfg) -> Dict[str, Any]:
     return defs
 
 
+# The caches' logical axes (``transformer.cache_defs`` builds its PDefs from
+# these): K/V split over the cache length for split-K decode.
+KV_CACHE_AXES = {"k": ("batch", "kv_seq", "heads", None),
+                 "v": ("batch", "kv_seq", "heads", None)}
+MLA_CACHE_AXES = {"c_kv": ("batch", "kv_seq", "lora")}
+
+# Attention-region sharding mode under a mesh.  'seq' (default) shards the
+# query sequence over 'model'.  'heads' pads the GQA group count so
+# (Hkv · G') divides the model axis and shards heads instead, at
+# (G'/G − 1) extra attention FLOPs; it falls back to 'seq' when the padding
+# would waste more than 25%.
+ATTN_SHARDING = ["seq"]
+
+
+def set_attn_sharding(mode: str):
+    assert mode in ("seq", "heads")
+    ATTN_SHARDING[0] = mode
+
+
+def _heads_padding(H: int, Hkv: int, msize: int):
+    """Smallest padded group count G' with (Hkv·G') % msize == 0, or None."""
+    G = H // Hkv
+    gp = G
+    while (Hkv * gp) % msize != 0:
+        gp += 1
+        if gp > 2 * G:
+            return None
+    return gp if gp / G <= 1.25 else None
+
+
 def attn_apply(p, x, *, cfg, mode: str, cache=None, pos=None,
-               local: bool = False):
+               local: bool = False, mesh=None, kv_len=None):
     """x: (B, S, D).  Returns (y, new_cache); a decode step writes its K/V
-    into slot ``pos`` of ``cache`` in place."""
+    into slot ``pos`` of ``cache`` in place.
+
+    On DTensors (a model on a mesh) it runs as a region over local shards
+    (:func:`~repro_torch.models.sharding.mixer_region`), which calls it
+    back with ``mesh`` set: then ``p`` holds whole weights, ``x`` this
+    rank's batch rows, and a decode step's ``cache`` this rank's slots of
+    a cache of ``kv_len`` slots split over ``model``."""
+    if is_dtensor(x):
+        inplace = ("k", "v") if mode == "decode" else ()
+        return mixer_region(attn_apply, p, x, cache=cache,
+                            cache_axes=KV_CACHE_AXES, inplace=inplace,
+                            place=False, cfg=cfg, mode=mode, pos=pos,
+                            local=local,
+                            kv_len=None if cache is None
+                            else cache["k"].shape[1])
     B, S, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = torch_dtype(cfg.compute_dtype)
@@ -307,16 +370,26 @@ def attn_apply(p, x, *, cfg, mode: str, cache=None, pos=None,
             at = torch.tensor([pos], device=x.device)
             q = rope(q, at, cfg.rope_theta)
             k = rope(k, at, cfg.rope_theta)
+        window = cfg.local_window if local else 0
+        if mesh is not None:
+            lo = _write_slot_split(cache["k"], k, pos, kv_len, mesh)
+            _write_slot_split(cache["v"], v, pos, kv_len, mesh)
+            o = _decode_attention_split(q, cache["k"], cache["v"], pos, lo,
+                                        mesh, window=window)
+            return (o.reshape(B, 1, H * dh) @ p["wo"].to(cdt)).to(x.dtype), cache
         k_cache = _write_slot(cache["k"], k, pos)
         v_cache = _write_slot(cache["v"], v, pos)
-        o = decode_attention(q, k_cache, v_cache, pos,
-                             window=cfg.local_window if local else 0)
+        o = decode_attention(q, k_cache, v_cache, pos, window=window)
         new_cache = {"k": k_cache, "v": v_cache}
     else:
         positions = torch.arange(S, device=x.device)
         if cfg.rope_theta:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
+        if mesh is not None:
+            return _attn_prefill_mesh(p, q, k, v, positions, cfg=cfg, cdt=cdt,
+                                      mode=mode, local=local, mesh=mesh,
+                                      out_dtype=x.dtype)
         if local:
             o = local_attention(q, k, v, positions, positions,
                                 window=cfg.local_window)
@@ -338,13 +411,22 @@ def mla_defs(cfg) -> Dict[str, Any]:
     }
 
 
-def mla_apply(p, x, *, cfg, mode: str, cache=None, pos=None):
+def mla_apply(p, x, *, cfg, mode: str, cache=None, pos=None, mesh=None,
+              kv_len=None):
     """DeepSeek-style Multi-head Latent Attention with a compressed KV cache.
 
     Train/prefill: decompress K/V and run blockwise attention.  Decode: the
     absorbed form, scores and values in the rank-r latent space against a
-    cache of c_kv (B, T, r) only.
+    cache of c_kv (B, T, r) only.  On DTensors it runs as a region over
+    local shards, as :func:`attn_apply` does.
     """
+    if is_dtensor(x):
+        inplace = ("c_kv",) if mode == "decode" else ()
+        return mixer_region(mla_apply, p, x, cache=cache,
+                            cache_axes=MLA_CACHE_AXES, inplace=inplace,
+                            place=False, cfg=cfg, mode=mode, pos=pos,
+                            kv_len=None if cache is None
+                            else cache["c_kv"].shape[1])
     B, S, D = x.shape
     H, dh, r = cfg.n_heads, cfg.head_dim, cfg.kv_lora_rank
     cdt = torch_dtype(cfg.compute_dtype)
@@ -353,23 +435,38 @@ def mla_apply(p, x, *, cfg, mode: str, cache=None, pos=None):
     c_kv = xq @ p["w_dkv"].to(cdt)                          # (B, S, r)
 
     if mode == "decode":
-        c_cache = _write_slot(cache["c_kv"], c_kv, pos)
+        lo = 0
+        if mesh is None:
+            c_cache = _write_slot(cache["c_kv"], c_kv, pos)
+        else:
+            c_cache = cache["c_kv"]
+            lo = _write_slot_split(c_cache, c_kv, pos, kv_len, mesh)
         c_comp = c_cache.to(cdt)
         wuk = p["w_uk"].to(cdt).reshape(r, H, dh)
         wuv = p["w_uv"].to(cdt).reshape(r, H, dh)
         q_lat = torch.einsum("bshd,rhd->bshr", q, wuk)      # absorb W_uk into q
         s = torch.einsum("bshr,btr->bhst", q_lat.float(),
                          c_comp.float()) / math.sqrt(dh)
-        idx = torch.arange(c_cache.shape[1], device=x.device)
+        idx = torch.arange(lo, lo + c_cache.shape[1], device=x.device)
         s = s.masked_fill(~(idx <= pos), -math.inf)
-        pr = torch.softmax(s, dim=-1)
-        o_lat = torch.einsum("bhst,btr->bshr", pr.to(cdt), c_comp)
+        if mesh is None:
+            pr = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhst,btr->bshr", pr.to(cdt), c_comp)
+        else:     # split-K: this rank's slots, the softmax across ranks
+            pr = _split_softmax(s, mesh)
+            o_lat = all_reduce(torch.einsum("bhst,btr->bshr", pr.to(cdt),
+                                            c_comp), mesh, "model")
         o = torch.einsum("bshr,rhd->bshd", o_lat, wuv)
         new_cache = {"c_kv": c_cache}
     else:
         k = (c_kv @ p["w_uk"].to(cdt)).reshape(B, S, H, dh)
         v = (c_kv @ p["w_uv"].to(cdt)).reshape(B, S, H, dh)
         positions = torch.arange(S, device=x.device)
+        if mesh is not None:
+            y, _ = _attn_prefill_mesh(p, q, k, v, positions, cfg=cfg, cdt=cdt,
+                                      mode=mode, local=False, mesh=mesh,
+                                      out_dtype=x.dtype, heads_mode=False)
+            return y, ({"c_kv": c_kv} if mode == "prefill" else None)
         o = blockwise_attention(q, k, v, positions, positions, causal=True)
         new_cache = {"c_kv": c_kv} if mode == "prefill" else None
     y = o.reshape(B, S, H * dh) @ p["wo"].to(cdt)
@@ -389,9 +486,131 @@ def swiglu_defs(cfg) -> Dict[str, Any]:
     }
 
 
-def swiglu_apply(p, x, *, cfg):
+SWIGLU_REGION_AXES = {"wg": (None, "dff"), "wu": (None, "dff"),
+                      "wo": ("dff", None)}
+
+
+def swiglu_apply(p, x, *, cfg, mesh=None):
+    """SwiGLU; on DTensors a region (``local_map``) in which the hidden
+    activation shards d_ff over ``model`` (Megatron tensor parallelism, the
+    reference's ``logical(g * u, "batch", None, "dff")``) and the output's
+    partial sums are added over ``model``."""
+    if is_dtensor(x):
+        mesh = current_mesh()
+        return region(lambda x, wg, wu, wo: swiglu_apply(
+                          {"wg": wg, "wu": wu, "wo": wo}, x, cfg=cfg,
+                          mesh=mesh),
+                      (x, p["wg"], p["wu"], p["wo"]),
+                      (ACT,) + tuple(SWIGLU_REGION_AXES[k]
+                                     for k in ("wg", "wu", "wo")),
+                      (ACT,))
     cdt = torch_dtype(cfg.compute_dtype)
     xq = x.to(cdt)
     g = F.silu(xq @ p["wg"].to(cdt))
     u = xq @ p["wu"].to(cdt)
-    return ((g * u) @ p["wo"].to(cdt)).to(x.dtype)
+    y = (g * u) @ p["wo"].to(cdt)
+    if mesh is not None:
+        y = all_reduce(y, mesh, "model")
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention under a mesh (local shards, explicit collectives over 'model')
+# ---------------------------------------------------------------------------
+
+def _write_slot_split(cache: torch.Tensor, new: torch.Tensor, pos: int,
+                      kv_len: int, mesh) -> int:
+    """Write the one-step ``new`` into global slot ``pos`` of a cache whose
+    ``kv_len`` slots are split over ``model`` (``cache`` is this rank's
+    chunk, written in place only on the rank that holds ``pos``).  Returns
+    the chunk's first global slot."""
+    if not 0 <= pos < kv_len:
+        raise IndexError(f"decode position {pos} outside a cache of "
+                         f"{kv_len} slots")
+    lo, hi = chunk_bounds(kv_len, axis_size(mesh, "model"),
+                          axis_rank(mesh, "model"))
+    if lo <= pos < hi:
+        cache[:, pos - lo] = new[:, 0].to(cache.dtype)
+    return lo
+
+
+def _split_softmax(s: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's columns of softmax(s, -1) when the last axis of the
+    scores ``s`` (float32, masked with -inf) is split over ``model``: the
+    max and the sum are taken across the ranks."""
+    if s.shape[-1]:
+        m = s.amax(dim=-1)
+    else:
+        m = s.new_full(s.shape[:-1], -math.inf)
+    m = all_reduce(m, mesh, "model", op=torch.distributed.ReduceOp.MAX)
+    p = torch.exp(s - m[..., None])
+    return p / all_reduce(p.sum(dim=-1), mesh, "model")[..., None]
+
+
+def _decode_attention_split(q, k_cache, v_cache, pos: int, lo: int, mesh, *,
+                            window: int = 0):
+    """:func:`decode_attention` against this rank's chunk of the cache
+    (global slots ``lo``..), the softmax and the value sum across ranks:
+    the reference's split-K decode over ``kv_seq``."""
+    B, _, H, dh = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(B, Hkv, G, dh)
+    k_cache = k_cache.to(q.dtype)
+    v_cache = v_cache.to(q.dtype)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) * scale
+    idx = torch.arange(lo, lo + T, device=q.device)
+    mask = idx <= pos
+    if window:
+        mask = mask & (idx > pos - window)
+    s = s.masked_fill(~mask, -math.inf)
+    p = _split_softmax(s, mesh)
+    out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return all_reduce(out, mesh, "model").reshape(B, 1, H, dh).to(q.dtype)
+
+
+def _attn_prefill_mesh(p, q, k, v, positions, *, cfg, cdt, mode, local, mesh,
+                       out_dtype, heads_mode=True):
+    """Prefill/train attention on this rank's batch rows, split over
+    ``model`` as the reference constrains it.
+
+    'heads' mode (non-local attention, ``ATTN_SHARDING`` 'heads' and a
+    padding within 25%): the GQA groups padded to G' with zero queries, K/V
+    repeated to Hkv·G' heads, this rank's contiguous share of the padded
+    heads attended, its rows of the padded ``wo`` applied and the partial
+    outputs added over ``model``.  ``wo`` is padded group by group, the
+    layout the padded queries have.  'seq' mode: this rank's chunk of
+    query rows against all keys (``seq_shard``), the output rows gathered
+    over ``model``.  Returns (y, the unrepeated K/V as the prefill cache).
+    """
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    msize, rank = axis_size(mesh, "model"), axis_rank(mesh, "model")
+    new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    gp = None
+    if heads_mode and ATTN_SHARDING[0] == "heads" and not local:
+        gp = _heads_padding(H, Hkv, msize)
+    if gp is not None:
+        G = H // Hkv
+        Hp = Hkv * gp
+        qp = F.pad(q.reshape(B, S, Hkv, G, dh), (0, 0, 0, gp - G)) \
+            .reshape(B, S, Hp, dh)
+        kp = torch.repeat_interleave(k, gp, dim=2)
+        vp = torch.repeat_interleave(v, gp, dim=2)
+        hs = Hp // msize
+        h0 = rank * hs
+        o = blockwise_attention(qp[:, :, h0:h0 + hs], kp[:, :, h0:h0 + hs],
+                                vp[:, :, h0:h0 + hs], positions, positions,
+                                causal=True)
+        wo = F.pad(p["wo"].to(cdt).reshape(Hkv, G, dh, -1),
+                   (0, 0, 0, 0, 0, gp - G)).reshape(Hp, dh, -1)
+        y = o.reshape(B, S, hs * dh) @ wo[h0:h0 + hs].reshape(hs * dh, -1)
+        return all_reduce(y, mesh, "model").to(out_dtype), new_cache
+    lo, hi = chunk_bounds(S, msize, rank)
+    o = blockwise_attention(q[:, lo:hi], k, v, positions[lo:hi], positions,
+                            causal=True,
+                            window=cfg.local_window if local else 0)
+    y = o.reshape(B, hi - lo, H * dh) @ p["wo"].to(cdt)
+    return all_gather_dim(y, 1, mesh, "model", S).to(out_dtype), new_cache

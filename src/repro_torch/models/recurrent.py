@@ -8,6 +8,12 @@ round alike (a log-depth scan rounds differently, and at bf16 compute
 that difference grows through the layers: PERF.md, PR 21).  sLSTM feeds
 its hidden state back into the gates and loops too.  Decode is one
 recurrent step with O(1) state.
+
+On a mesh the reference constrains nothing inside these mixers, so each
+runs as a region over this rank's batch rows with its weights gathered
+(:func:`repro_torch.models.sharding.mixer_region`); its states leave placed
+by the cache axes (RG-LRU's ``h`` split over ``model`` along
+``rnn_state``).
 """
 from __future__ import annotations
 
@@ -19,6 +25,23 @@ import torch.nn.functional as F
 
 from .config import torch_dtype
 from .layers import PDef
+from .sharding import is_dtensor, mixer_region
+
+RNN_CACHE_AXES = {
+    "rglru": {"h": ("batch", "rnn_state")},
+    "mlstm": {"C": ("batch", "heads", None, None), "n": ("batch", "heads", None),
+              "m": ("batch", "heads")},
+    "slstm": {k: ("batch", "heads", None) for k in ("c", "n", "m", "h")},
+}
+
+
+def _on_mesh(fn, kind, p, x, cfg, mode, cache, pos):
+    """``fn`` as a region over local shards (its ``mesh`` argument unused:
+    the math is the one-device math on this rank's batch rows)."""
+    return mixer_region(lambda p, x, cache, mesh, **kw: fn(p, x, cache=cache,
+                                                           **kw),
+                        p, x, cache=cache, cache_axes=RNN_CACHE_AXES[kind],
+                        cfg=cfg, mode=mode, pos=pos)
 
 # ---------------------------------------------------------------------------
 # RG-LRU (Griffin): h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
@@ -53,6 +76,8 @@ def _rglru_coeffs(p, u, cdt):
 
 def rglru_apply(p, x, *, cfg, mode: str, cache=None, pos=None):
     """x: (B, S, D) → (y, new_cache);  cache = {'h': (B, w)} float32."""
+    if is_dtensor(x):
+        return _on_mesh(rglru_apply, "rglru", p, x, cfg, mode, cache, pos)
     B, S, D = x.shape
     cdt = torch_dtype(cfg.compute_dtype)
     xq = x.to(cdt)
@@ -135,6 +160,8 @@ def _mlstm_chunk(q, k, v, ilog, flog, state):
 
 
 def mlstm_apply(p, x, *, cfg, mode: str, cache=None, pos=None, chunk: int = 128):
+    if is_dtensor(x):
+        return _on_mesh(mlstm_apply, "mlstm", p, x, cfg, mode, cache, pos)
     B, S, D = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
     cdt = torch_dtype(cfg.compute_dtype)
@@ -227,6 +254,8 @@ def slstm_defs(cfg) -> Dict[str, Any]:
 
 
 def slstm_apply(p, x, *, cfg, mode: str, cache=None, pos=None):
+    if is_dtensor(x):
+        return _on_mesh(slstm_apply, "slstm", p, x, cfg, mode, cache, pos)
     B, S, D = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
     hd = H * dh

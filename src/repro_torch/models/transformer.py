@@ -25,9 +25,22 @@ behaviours differ from the reference on purpose:
   never match, so its decode steps overwrite the last prompt slot.
 * ``decode_step`` raises when ``pos`` is past the cache instead of
   clamping the write.
+
+On a mesh (``Model.init(..., mesh=)`` / ``from_params(..., mesh=)``, a
+``DeviceMesh`` from :mod:`repro_torch.launch.mesh`) each parameter is a
+DTensor placed by its ``PDef`` axes under the rules of
+:mod:`repro_torch.models.sharding`, and ``prefill``/``decode_step`` run
+inside ``sharding_rules(mesh)``: the tokens enter as the residual stream
+placed by the batch rule (``("batch", "seq", "dmodel")``), each block's
+mixer and FFN run as regions over local shards with explicit collectives,
+the caches leave placed by :func:`cache_axes` (K/V split over ``model``
+along ``kv_seq``), and the logits leave through ``full_tensor()``.  The
+batch must split evenly over the batch axes.  Training on a mesh is not
+ported yet (``loss_fn`` raises).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import partial
 from typing import Any, Dict, Optional
@@ -42,12 +55,18 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 
 from .config import ModelConfig, torch_dtype
-from .layers import (PDef, attn_apply, attn_defs, blockwise_attention,
-                     init_from_defs, mla_apply, mla_defs, rms_norm,
-                     swiglu_apply, swiglu_defs, tree_map)
+from .layers import (KV_CACHE_AXES, MLA_CACHE_AXES, PDef, attn_apply,
+                     attn_defs, blockwise_attention, init_from_defs,
+                     mla_apply, mla_defs, rms_norm, swiglu_apply, swiglu_defs,
+                     tree_leaves, tree_map)
 from .moe import moe_apply, moe_defs
-from .recurrent import (mlstm_apply, mlstm_defs, rglru_apply, rglru_defs,
-                        slstm_apply, slstm_defs)
+from .recurrent import (RNN_CACHE_AXES, mlstm_apply, mlstm_defs,
+                        rglru_apply, rglru_defs, slstm_apply, slstm_defs)
+from .sharding import (ACT, all_reduce, axis_rank, axis_size, batch_rows,
+                       chunk_bounds, current_mesh, distribute, from_local,
+                       is_dtensor, logical, param_spec, region,
+                       require_default_rules, require_group, sharding_rules,
+                       to_local)
 
 MIXER_DEFS = {
     "attn": attn_defs, "attn_local": attn_defs, "attn_bidir": attn_defs,
@@ -113,22 +132,22 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
 def _mixer_cache_defs(cfg: ModelConfig, kind: str, batch: int, seq: int):
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if kind in ("attn", "attn_local"):
-        return {"k": PDef((batch, seq, Hkv, dh), ("batch", "kv_seq", "heads", None)),
-                "v": PDef((batch, seq, Hkv, dh), ("batch", "kv_seq", "heads", None))}
-    if kind == "mla":
-        return {"c_kv": PDef((batch, seq, cfg.kv_lora_rank),
-                             ("batch", "kv_seq", "lora"))}
-    if kind == "rglru":
-        w = cfg.rnn_state_dim or cfg.d_model
-        return {"h": PDef((batch, w), ("batch", "rnn_state"))}
-    if kind == "mlstm":
-        return {"C": PDef((batch, H, dh, dh), ("batch", "heads", None, None)),
-                "n": PDef((batch, H, dh), ("batch", "heads", None)),
-                "m": PDef((batch, H), ("batch", "heads"))}
-    if kind == "slstm":
-        return {k: PDef((batch, H, dh), ("batch", "heads", None))
-                for k in ("c", "n", "m", "h")}
-    raise ValueError(kind)
+        shapes = {"k": (batch, seq, Hkv, dh), "v": (batch, seq, Hkv, dh)}
+        axes = KV_CACHE_AXES
+    elif kind == "mla":
+        shapes, axes = {"c_kv": (batch, seq, cfg.kv_lora_rank)}, MLA_CACHE_AXES
+    elif kind == "rglru":
+        shapes = {"h": (batch, cfg.rnn_state_dim or cfg.d_model)}
+        axes = RNN_CACHE_AXES[kind]
+    elif kind == "mlstm":
+        shapes = {"C": (batch, H, dh, dh), "n": (batch, H, dh), "m": (batch, H)}
+        axes = RNN_CACHE_AXES[kind]
+    elif kind == "slstm":
+        shapes = {k: (batch, H, dh) for k in ("c", "n", "m", "h")}
+        axes = RNN_CACHE_AXES[kind]
+    else:
+        raise ValueError(kind)
+    return {k: PDef(v, axes[k]) for k, v in shapes.items()}
 
 
 def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
@@ -151,19 +170,42 @@ def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
-               dtype=torch.bfloat16, device=None):
-    """Zero caches: K/V (and c_kv) in ``dtype``, recurrent states float32."""
-    dev = resolve_device(device)
+               dtype=torch.bfloat16, device=None, mesh=None):
+    """Zero caches: K/V (and c_kv) in ``dtype``, recurrent states float32;
+    on ``mesh`` each placed by its :func:`cache_axes`."""
+    dev = resolve_device(device if mesh is None else mesh.device_type)
+
+    def make(k, pd):
+        z = torch.zeros(pd.shape, device=dev,
+                        dtype=dtype if k in _KV_CACHE_KEYS else torch.float32)
+        return z if mesh is None else distribute(
+            z, param_spec(mesh, pd.axes))
 
     def walk(t):
         if isinstance(t, list):
             return [walk(g) for g in t]
-        return {k: walk(v) if not isinstance(v, PDef) else torch.zeros(
-            v.shape, device=dev,
-            dtype=dtype if k in _KV_CACHE_KEYS else torch.float32)
-            for k, v in t.items()}
+        return {k: walk(v) if not isinstance(v, PDef) else make(k, v)
+                for k, v in t.items()}
 
     return walk(cache_defs(cfg, batch, seq))
+
+
+def _axes(defs):
+    """The logical axes of a tree of PDef leaves, in its structure."""
+    return tree_map(lambda pd: pd.axes, defs)
+
+
+def cache_axes(cfg: ModelConfig, batch: int, seq: int):
+    return _axes(cache_defs(cfg, batch, seq))
+
+
+def place_caches(caches, cfg: ModelConfig):
+    """Each cache leaf redistributed to its :func:`cache_axes` under the
+    active rules (the self-attention K/V split over ``model`` along
+    ``kv_seq``); outside a mesh context the caches as they are."""
+    B = next(iter(tree_leaves(caches))).shape[0]
+    axes = cache_axes(cfg, B, cache_len(caches) or 1)
+    return tree_map(lambda t, a: logical(t, *a), caches, axes)
 
 
 def cache_len(caches) -> Optional[int]:
@@ -181,13 +223,21 @@ def pad_caches(caches, length: int):
     ``length`` slots; picked by block kind and key, never by shape, so the
     encoder's cross-attention caches and the recurrent states stay as
     they are."""
+    def pad(t):
+        widths = (0, 0) * (t.dim() - 2) + (0, length - t.shape[1])
+        if not is_dtensor(t):
+            return F.pad(t, widths)
+        # a gathered prefill cache: its sequence axis is whole on each rank
+        return from_local(F.pad(t.to_local(), widths), t.device_mesh,
+                          ("batch",) + (None,) * (t.dim() - 1),
+                          (t.shape[0], length) + tuple(t.shape[2:]))
+
     def group(g):
         out = {}
         for key, c in g.items():
             names = SEQ_CACHE_KINDS.get(key.split(":", 1)[1], ())
-            out[key] = {n: (F.pad(t, (0, 0) * (t.dim() - 2)
-                                  + (0, length - t.shape[1]))
-                            if n in names else t) for n, t in c.items()}
+            out[key] = {n: (pad(t) if n in names else t)
+                        for n, t in c.items()}
         return out
 
     return {gk: [group(g) for g in gs] for gk, gs in caches.items()}
@@ -207,8 +257,27 @@ MIXER_APPLY = {
 }
 
 
+def _gathered_region(fn, p, acts, out_names):
+    """``fn(p, *acts)`` on this rank's batch rows with ``p`` gathered: the
+    regions the reference constrains nothing in (encoder and cross
+    attention).  ``acts`` are batch-major DTensors placed by the batch
+    rule; ``out_names`` the outputs' logical axes."""
+    keys = sorted(p)
+    na = len(acts)
+    return region(lambda *a: fn(dict(zip(keys, a[na:])), *a[:na]),
+                  tuple(acts) + tuple(p[k] for k in keys),
+                  [("batch",) + (None,) * (t.dim() - 1) for t in acts]
+                  + [(None,) * p[k].dim() for k in keys], out_names)
+
+
 def _bidir_attn_apply(p, x, *, cfg, kv=None):
     """Bidirectional (encoder) or cross attention: no mask, no cache."""
+    if is_dtensor(x):
+        if kv is None:
+            return _gathered_region(lambda p, x: _bidir_attn_apply(
+                p, x, cfg=cfg), p, (x,), (ACT,))
+        return _gathered_region(lambda p, x, kv: _bidir_attn_apply(
+            p, x, cfg=cfg, kv=kv), p, (x, kv), (ACT,))
     B, S, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = torch_dtype(cfg.compute_dtype)
@@ -227,6 +296,9 @@ def _bidir_attn_apply(p, x, *, cfg, kv=None):
 
 def _xattn_cached(p, x, k_cache, v_cache, *, cfg):
     """Cross-attention against precomputed encoder K/V (decode path)."""
+    if is_dtensor(x):
+        return _gathered_region(lambda p, x, k, v: _xattn_cached(
+            p, x, k, v, cfg=cfg), p, (x, k_cache, v_cache), (ACT,))
     B, S, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = torch_dtype(cfg.compute_dtype)
@@ -243,6 +315,12 @@ def _xattn_cached(p, x, k_cache, v_cache, *, cfg):
 def _xattn_kv(p, enc_out, *, cfg):
     """The cross-attention K/V a decode step reads: the encoder output
     through wk and wv, computed once at prefill."""
+    if is_dtensor(enc_out):
+        kv = ("batch", None, None, None)
+        k, v = _gathered_region(lambda p, e: tuple(
+            _xattn_kv(p, e, cfg=cfg).values()),
+            {w: p[w] for w in ("wk", "wv")}, (enc_out,), (kv, kv))
+        return {"k": k, "v": v}
     cdt = torch_dtype(cfg.compute_dtype)
     e = enc_out.to(cdt)
     B, T, _ = e.shape
@@ -266,6 +344,8 @@ def apply_block(kind: str, p, x, *, cfg, mode, cache, pos):
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         if cfg.ffn == "moe":
             y, aux = moe_apply(p["ffn"], h, cfg=cfg)
+            if is_dtensor(aux):             # replicated: its value on every rank
+                aux = aux.to_local()
         else:
             y = swiglu_apply(p["ffn"], h, cfg=cfg)
         x = x + y
@@ -337,6 +417,9 @@ def _remat_group(cfg: ModelConfig, pattern, group: "ParamTree", x, enc_out):
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
+
+_NO_CONTEXT = contextlib.nullcontext()
+
 
 class ParamTree(nn.Module):
     """Parameters of a nested dict/list tree as modules: a dict becomes a
@@ -420,30 +503,62 @@ class Model(ParamTree):
     as :func:`repro_torch.convert.lm_params_from_jax` returns).
     """
 
-    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any], mesh=None):
         _check_layout(model_defs(cfg), params)
         super().__init__(params, lambda k, t: _group_module(cfg, k, t))
-        self.cfg = cfg
+        self.cfg, self.mesh = cfg, mesh
 
     @classmethod
     def init(cls, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
-             device=None) -> "Model":
+             device=None, mesh=None) -> "Model":
         """Weights from :func:`init_from_defs` in ``cfg.param_dtype``, drawn
-        from ``gen`` (default: seed 0 on the device)."""
+        from ``gen`` (default: seed 0 on the device).  On ``mesh`` every
+        rank draws the same values and keeps its shard of each leaf, placed
+        by the leaf's ``PDef`` axes, before the next leaf is drawn; the
+        weights equal the ones drawn without a mesh."""
+        if mesh is not None:
+            require_group()
+            device = mesh.device_type
         dev = resolve_device(device if device is not None or gen is None
                              else gen.device)
         if gen is None:
             gen = torch.Generator(dev).manual_seed(0)
+        place = None if mesh is None else (
+            lambda pd, t: distribute(t, param_spec(mesh, pd.axes)))
         return cls(cfg, init_from_defs(model_defs(cfg), gen,
-                                       torch_dtype(cfg.param_dtype), dev))
+                                       torch_dtype(cfg.param_dtype), dev,
+                                       place=place), mesh)
 
     @classmethod
     def from_params(cls, cfg: ModelConfig, params: Dict[str, Any],
-                    device=None) -> "Model":
+                    device=None, mesh=None) -> "Model":
         """A model over ``params`` moved to the device; tensors already
-        there are shared, not copied."""
-        dev = resolve_device(device)
-        return cls(cfg, tree_map(lambda a: _tensor(a).to(dev), params))
+        there are shared, not copied.  On ``mesh`` each leaf is placed by
+        its ``PDef`` axes (a DTensor leaf is kept as it is)."""
+        if mesh is None:
+            dev = resolve_device(device)
+            return cls(cfg, tree_map(lambda a: _tensor(a).to(dev), params))
+        require_group()
+        dev = resolve_device(mesh.device_type)
+        return cls(cfg, tree_map(
+            lambda a, pd: a if is_dtensor(a) else distribute(
+                _tensor(a).to(dev), param_spec(mesh, pd.axes)),
+            params, model_defs(cfg)), mesh)
+
+    def param_axes(self):
+        """The logical axes of every parameter, in the parameter tree's
+        structure."""
+        return _axes(model_defs(self.cfg))
+
+    def _rules(self):
+        """The mesh context this model runs in (none without a mesh): the
+        default rules, which the mesh regions' collectives assume."""
+        if self.mesh is None:
+            return _NO_CONTEXT
+        if current_mesh() is self.mesh:
+            require_default_rules()
+            return _NO_CONTEXT
+        return sharding_rules(self.mesh)
 
     @property
     def device(self) -> torch.device:
@@ -453,22 +568,60 @@ class Model(ParamTree):
     def token_embeds(self, tokens) -> torch.Tensor:
         """The decode step's input embedding of ``tokens``: the embedding
         table scaled by √d, or for a frontend stub lm_headᵀ scaled by √d
-        (what a teacher-forced prompt of such a model extends with)."""
+        (what a teacher-forced prompt of such a model extends with).  On a
+        mesh, a region: each ``model`` rank looks up the tokens in its
+        vocabulary shard and the rows are added over ``model``."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        table = self.embed if self.cfg.frontend == "none" else self.lm_head.t()
+        stub = self.cfg.frontend != "none"
+        if self.mesh is not None:
+            with self._rules():
+                return self._embeds_on_mesh(tokens, stub)
+        table = self.lm_head.t() if stub else self.embed
         return table[tokens] * math.sqrt(self.cfg.d_model)
+
+    def _embeds_on_mesh(self, tokens, stub: bool):
+        mesh, V = self.mesh, self.cfg.vocab_size
+        B = tokens.shape[0]
+
+        def body(table):
+            table = table.t() if stub else table
+            lo, hi = chunk_bounds(V, axis_size(mesh, "model"),
+                                  axis_rank(mesh, "model"))
+            b0, b1 = batch_rows(mesh, B)
+            t = tokens[b0:b1]
+            inside = (t >= lo) & (t < hi)
+            if hi > lo:
+                rows = table[(t - lo).clamp(0, hi - lo - 1)]
+            else:
+                rows = table.new_zeros(t.shape + (table.shape[1],))
+            rows = rows * inside[..., None].to(rows.dtype)
+            return all_reduce(rows, mesh, "model") * math.sqrt(self.cfg.d_model)
+
+        table = self.lm_head if stub else self.embed
+        names = (None, "vocab") if stub else ("vocab", None)
+        return region(body, (table,), (names,), (ACT,))
+
+    def _host_rows(self, a):
+        """Input rows for this model: on a mesh, this rank's batch rows as
+        the residual stream's DTensor."""
+        a = torch.as_tensor(a, device=self.device)
+        if self.mesh is None:
+            return a
+        b0, b1 = batch_rows(self.mesh, a.shape[0])
+        return from_local(a[b0:b1], self.mesh,
+                          ("batch",) + (None,) * (a.dim() - 1), a.shape)
 
     def _embed(self, batch) -> torch.Tensor:
         cfg = self.cfg
         if cfg.frontend == "none":
             x = self.token_embeds(batch["tokens"])
         else:
-            x = torch.as_tensor(batch["embeds"], device=self.device)
-        return x.to(torch_dtype(cfg.compute_dtype))
+            x = self._host_rows(batch["embeds"])
+        return logical(x.to(torch_dtype(cfg.compute_dtype)), *ACT)
 
     def _encode(self, batch) -> torch.Tensor:
         cfg = self.cfg
-        x = torch.as_tensor(batch["enc_embeds"], device=self.device).to(
+        x = self._host_rows(batch["enc_embeds"]).to(
             torch_dtype(cfg.compute_dtype))
         for group in self.encoder_blocks:
             x, _, _ = _group_step(cfg, ("attn_bidir",), group, x, None,
@@ -501,7 +654,12 @@ class Model(ParamTree):
         return x, (new_caches if collect else None), aux
 
     def _logits(self, x) -> torch.Tensor:
-        return x @ self.lm_head.to(x.dtype)
+        if not is_dtensor(x):
+            return x @ self.lm_head.to(x.dtype)
+        # this rank's vocabulary columns, placed ("batch", "seq", "vocab")
+        y = x.to_local() @ to_local(self.lm_head, None, "vocab").to(x.dtype)
+        return from_local(y, self.mesh, ("batch", "seq", "vocab"),
+                          tuple(x.shape[:2]) + (self.cfg.vocab_size,))
 
     # -- entry points --------------------------------------------------------
     def loss_fn(self, batch, *, remat: bool = True,
@@ -513,6 +671,10 @@ class Model(ParamTree):
         layer group is recomputed in the backward pass under the active
         remat policy."""
         cfg = self.cfg
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "training on a mesh is not ported yet (ROADMAP item 15); "
+                "build the model without mesh= to train it")
         enc_out = self._encode(batch) if cfg.encoder_layers else None
         x = self._embed(batch)
         x, _, aux = self._trunk(x, None, mode="train", pos=None,
@@ -540,18 +702,22 @@ class Model(ParamTree):
         ``cache_len`` the self-attention caches are padded to that many
         slots, room for ``cache_len - S`` decode steps.
         """
-        cfg = self.cfg
-        enc_out = self._encode(batch) if cfg.encoder_layers else None
-        x = self._embed(batch)
-        S = x.shape[1]
-        x, caches, _ = self._trunk(x, None, mode="prefill", pos=None,
-                                   enc_out=enc_out)
-        logits = self._logits(x[:, -1:, :])
-        if cache_len is not None:
-            if cache_len < S:
-                raise ValueError(f"cache_len {cache_len} < prompt length {S}")
-            caches = pad_caches(caches, cache_len)
-        return logits, caches
+        with self._rules():
+            cfg = self.cfg
+            enc_out = self._encode(batch) if cfg.encoder_layers else None
+            x = self._embed(batch)
+            S = x.shape[1]
+            x, caches, _ = self._trunk(x, None, mode="prefill", pos=None,
+                                       enc_out=enc_out)
+            logits = self._logits(x[:, -1:, :])
+            if cache_len is not None:
+                if cache_len < S:
+                    raise ValueError(f"cache_len {cache_len} < prompt "
+                                     f"length {S}")
+                caches = pad_caches(caches, cache_len)
+            if self.mesh is None:
+                return logits, caches
+            return logits.full_tensor(), place_caches(caches, cfg)
 
     @torch.inference_mode()
     def decode_step(self, tokens, caches, pos: int):
@@ -563,7 +729,12 @@ class Model(ParamTree):
         if pos < 0 or (slots is not None and pos >= slots):
             raise ValueError(f"decode position {pos} outside the caches' "
                              f"{slots} slots; prefill with a larger cache_len")
-        x = self.token_embeds(tokens).to(torch_dtype(self.cfg.compute_dtype))
-        x, new_caches, _ = self._trunk(x, caches, mode="decode", pos=pos,
-                                       enc_out=None)
-        return self._logits(x), new_caches
+        with self._rules():
+            x = self.token_embeds(tokens).to(
+                torch_dtype(self.cfg.compute_dtype))
+            x, new_caches, _ = self._trunk(x, caches, mode="decode", pos=pos,
+                                           enc_out=None)
+            logits = self._logits(x)
+            if self.mesh is None:
+                return logits, new_caches
+            return logits.full_tensor(), new_caches

@@ -50,18 +50,33 @@ def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def _unflatten_into(tree_like, flat: Dict[str, torch.Tensor], device,
-                    prefix: str = ""):
+                    prefix: str = "", shardings=None):
     if isinstance(tree_like, dict):
-        return {k: _unflatten_into(v, flat, device, f"{prefix}{k}/")
+        return {k: _unflatten_into(v, flat, device, f"{prefix}{k}/",
+                                   _child(shardings, k))
                 for k, v in tree_like.items()}
     if isinstance(tree_like, (list, tuple)):
-        return [_unflatten_into(v, flat, device, f"{prefix}{i}/")
+        return [_unflatten_into(v, flat, device, f"{prefix}{i}/",
+                                _child(shardings, i))
                 for i, v in enumerate(tree_like)]
     t = flat[prefix[:-1]]
+    if shardings is not None:           # straight onto its placement
+        from repro_torch.models.sharding import distribute
+        dtype = tree_like.dtype if isinstance(tree_like, torch.Tensor) \
+            else t.dtype
+        return distribute(t.to(device=shardings.mesh.device_type, dtype=dtype),
+                          shardings)
     if isinstance(tree_like, torch.Tensor):
         dev = tree_like.device if device is None else device
         return t.to(device=dev, dtype=tree_like.dtype)
     return t
+
+
+def _child(shardings, key):
+    """The subtree of ``shardings`` under ``key`` (None: no placement)."""
+    if shardings is None or not isinstance(shardings, (dict, list, tuple)):
+        return shardings
+    return shardings[key]
 
 
 class CheckpointManager:
@@ -139,11 +154,17 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, state_like, step: Optional[int] = None,
-                device=None) -> Tuple[Any, dict]:
+                device=None, shardings=None) -> Tuple[Any, dict]:
         """A new state of ``state_like``'s structure and dtypes from step
         ``step`` (default the latest), every tensor on ``device`` (default:
         the like-leaf's device; ``device="cpu"`` restores a card-written
-        checkpoint on the host).  Returns (state, manifest)."""
+        checkpoint on the host).  ``shardings``: a tree of
+        ``repro_torch.models.sharding.NamedSharding`` leaves (None for an
+        unplaced leaf) matching ``state_like``, or one for every leaf; each
+        leaf then lands straight on its placement as a DTensor, every rank
+        reading the same file and keeping its shard (how a checkpoint
+        written on mesh A, or without one, lands on mesh B).  Returns
+        (state, manifest)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -153,4 +174,5 @@ class CheckpointManager:
             manifest = json.load(f)
         with np.load(os.path.join(d, "arrays.npz")) as raw:
             flat = {k: _tensor(raw[k], manifest["dtypes"][k]) for k in raw.files}
-        return _unflatten_into(state_like, flat, dev), manifest
+        return _unflatten_into(state_like, flat, dev,
+                               shardings=shardings), manifest

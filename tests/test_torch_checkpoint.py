@@ -272,12 +272,88 @@ def test_dp_corpus_stats_example_funds_three_steps():
 
 
 def test_fault_tolerance_example_runs(tmp_path):
-    first, second, restored = _example("fault_tolerance_demo_torch.py")["main"](
+    first, second, restored, on_mesh = _example(
+        "fault_tolerance_demo_torch.py")["main"](
         ["--device", "cpu", "--ckpt-dir", str(tmp_path), "--steps", "4",
          "--resume-to", "6", "--ckpt-every", "2", "--batch", "2", "--seq", "8"])
     assert len(first) == 4 and len(second) == 2
     assert int(restored["opt"]["count"]) == 6
     assert restored["params"]["lm_head"].device.type == "cpu"
+    # phase 3's re-mesh: the same values, each a replicated DTensor
+    from torch.distributed.tensor import DTensor, Replicate
+    for a, b in zip(tree_leaves(on_mesh["params"]),
+                    tree_leaves(restored["params"])):
+        assert isinstance(a, DTensor)
+        assert all(isinstance(pl, Replicate) for pl in a.placements)
+        assert torch.equal(a.to_local(), b)
+
+
+def _remesh_rank(rank, store_path, ckpt_dir, out_path):
+    """One rank of the two-rank re-mesh: the checkpoint restored straight
+    onto a (1, 2) mesh, each parameter placed by its PDef axes."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.sharding import param_spec
+    from repro_torch.models.transformer import model_defs
+    load_all()
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        cfg = reduced_config("qwen3-4b")
+        mesh = make_host_mesh("cpu")
+        like = Model.init(cfg, torch.Generator().manual_seed(1),
+                          device="cpu").tree()
+        shardings = tree_map(lambda pd: param_spec(mesh, pd.axes),
+                             model_defs(cfg))
+        state, manifest = CheckpointManager(ckpt_dir).restore(
+            {"params": like}, shardings={"params": shardings})
+        leaves = tree_leaves(state["params"])
+        local = [t.to_local().clone() for t in leaves]
+        sharded = sum(any(not pl.is_replicate() for pl in t.placements)
+                      for t in leaves)
+        full = [t.full_tensor() for t in leaves]
+        torch.save({"full": full, "local": local, "sharded": sharded,
+                    "step": manifest["step"]}, f"{out_path}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_restore_onto_a_two_rank_mesh_leaf_for_leaf(tmp_path):
+    """A checkpoint written without a mesh lands on a two-rank gloo mesh
+    through ``restore(..., shardings=)``: each rank holds its shard of every
+    leaf (some split over ``model``), and gathered they equal the saved
+    leaves bit for bit."""
+    import torch.multiprocessing as mp
+    load_all()
+    cfg = reduced_config("qwen3-4b")
+    params = Model.init(cfg, torch.Generator().manual_seed(0),
+                        device="cpu").tree()
+    CheckpointManager(str(tmp_path / "ckpt")).save(7, {"params": params})
+    ctx = mp.get_context("spawn")
+    out = str(tmp_path / "remesh")
+    procs = [ctx.Process(target=_remesh_rank,
+                         args=(r, str(tmp_path / "store"),
+                               str(tmp_path / "ckpt"), out)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=120)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.terminate()
+        p.join(5)
+    assert not hung, "a gloo rank did not finish within 120 s"
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    want = tree_leaves(params)
+    got = [torch.load(f"{out}.{r}.pt") for r in range(2)]
+    for g in got:
+        assert g["step"] == 7 and g["sharded"] > 0
+        assert len(g["full"]) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(g["full"], want))
+    assert any(a.shape != b.shape for a, b in zip(got[0]["local"], want))
 
 
 def test_training_entry_points_raise_without_cuda(tmp_path):

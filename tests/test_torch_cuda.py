@@ -921,6 +921,43 @@ def test_lm_reduced_on_card_matches_cpu(cuda, arch):
         assert _rel(got.cpu(), want) < LM_REL, t
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen3-4b",
+                                  "recurrentgemma-2b"])
+def test_lm_mesh_one_rank_nccl_matches_cpu(cuda, arch, tmp_path):
+    """A (1, 1) mesh over a one-rank NCCL group on the card: prefill logits,
+    the caches (DTensors, placed by cache_axes) and 3 decode steps equal the
+    CPU's no-mesh run of the same weights (rel 1e-4)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import load_all
+    from repro_torch.configs.shapes import reduced_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    load_all()
+    cpu = Model.init(reduced_config(arch), torch.Generator().manual_seed(0),
+                     device="cpu")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh("cuda")
+        card = Model.from_params(cpu.cfg, cpu.tree(), mesh=mesh)
+        batch = _lm_batch(cpu, 2, 10, seed=1)
+        want, wc = cpu.prefill(batch, cache_len=13)
+        got, gc = card.prefill({k: v.to(cuda) for k, v in batch.items()},
+                               cache_len=13)
+        assert got.device.type == "cuda"
+        assert _rel(got.cpu(), want) < LM_REL
+        for t in range(3):
+            tok = want[:, -1].argmax(-1)[:, None]
+            want, wc = cpu.decode_step(tok, wc, 10 + t)
+            got, gc = card.decode_step(tok.to(cuda), gc, 10 + t)
+            assert _rel(got.cpu(), want) < LM_REL, t
+    finally:
+        dist.destroy_process_group()
+
+
 def test_lm_model_and_example_default_to_cuda(cuda):
     """Model.init and the serving example's entry point without a device
     run on the card."""

@@ -117,6 +117,7 @@ def test_port_imports_neither_jax_nor_repro():
             " repro_torch.models, repro_torch.models.config,"
             " repro_torch.models.layers, repro_torch.models.recurrent,"
             " repro_torch.models.moe, repro_torch.models.transformer,"
+            " repro_torch.models.sharding, repro_torch.launch.mesh,"
             " repro_torch.configs.shapes, repro_torch.data.tokens,"
             " repro_torch.train, repro_torch.train.optimizer,"
             " repro_torch.train.dp, repro_torch.train.train_step,"
