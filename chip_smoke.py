@@ -167,7 +167,18 @@ Phases, in order; any failure exits non-zero:
    Qwen3-4B at published width (4 of 36 layers) runs the same parity gate
    on each mesh in both attention modes (DeepSeek-V2's MLA reads none).
    No kernel of the port runs here either.
-30. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+30. [lm-mesh-train] the LM plane's training on a mesh (Model.loss_fn,
+   make_train_step, AdamW and int8 moments on DTensors, sharded
+   checkpoints) at (1, 1) through a one-rank NCCL group: Qwen3-4B at
+   published width (4 of 36 layers, float32 compute, TF32 off), two steps
+   with remat "dots" and off against two no-mesh steps on the card (each
+   loss within rel 1e-5, every parameter and moment leaf within rel 1e-4
+   of its max); DeepSeek-V2-236B at published width, 1 of 60 layers (the
+   depth one card trains with a fifth free), bf16 with int8 moments: two
+   steps (seconds, peak memory, finite losses) and a sharded save and
+   restore, bit-equal. tools/lm_mesh.py --train runs the four-card runs.
+   No kernel of the port runs here.
+31. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
 
@@ -3612,10 +3623,10 @@ def lm_mesh_reference(ref_path, arch=LM_MESH_ARCH, layers=LM_MESH_LAYERS):
     return n_params, secs, peak
 
 
-def lm_mesh_spawn(job, world, tag):
-    """Run ``_lm_mesh_rank`` on ``world`` spawned NCCL ranks (a FileStore
-    under build/); returns rank 0's report.  Any rank that fails or outlives
-    LM_MESH_TIMEOUT fails the phase."""
+def lm_mesh_spawn(job, world, tag, target=None, timeout=LM_MESH_TIMEOUT):
+    """Run ``target`` (default ``_lm_mesh_rank``) on ``world`` spawned NCCL
+    ranks (a FileStore under build/); returns rank 0's report.  Any rank
+    that fails or outlives ``timeout`` seconds fails the phase."""
     import torch.multiprocessing as mp
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     os.makedirs("build", exist_ok=True)
@@ -3625,11 +3636,12 @@ def lm_mesh_spawn(job, world, tag):
         if os.path.exists(f):
             os.remove(f)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_lm_mesh_rank, args=(r, world, store, job, out))
+    procs = [ctx.Process(target=target or _lm_mesh_rank,
+                         args=(r, world, store, job, out))
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.time() + LM_MESH_TIMEOUT
+    deadline = time.time() + timeout
     for p in procs:
         p.join(timeout=max(deadline - time.time(), 1))
     hung = [p for p in procs if p.is_alive()]
@@ -3758,6 +3770,370 @@ def phase_lm_mesh(card):
     print(f"[lm-mesh] world {world}: {time.perf_counter() - t_phase:.1f} s in all")
     return report
 
+# [lm-mesh-train]: the LM plane's training on a mesh.  (a) Qwen3-4B
+# at published width, 4 of 36 layers (1.182B parameters), float32 compute
+# with TF32 off: two make_train_step steps on the mesh, remat "dots" and
+# off, against the no-mesh steps on the same card.  (b) DeepSeek-V2-236B at
+# published width, LM_MESH_TRAIN_MOE_LAYERS of 60 layers (the depth one card
+# holds with a fifth free, tools/lm_mesh.py --train-depth), seeded bf16
+# weights, int8 moments, capacity factor 1.25: two steps, then a sharded
+# save and restore.  One card runs both at (1, 1) through a one-rank NCCL
+# group; tools/lm_mesh.py --train runs the four-card runs.
+LM_MESH_TRAIN_B, LM_MESH_TRAIN_S = 8, 128
+LM_MESH_TRAIN_REL_LOSS = 1e-5   # mesh vs no mesh, each step's loss
+LM_MESH_TRAIN_REL = 1e-4        # every parameter and moment leaf, of its max
+LM_MESH_TRAIN_MOE_LAYERS = 1
+LM_MESH_TRAIN_STEPS = 2
+
+
+def lm_mesh_train_batch(cfg):
+    """The seeded batch every rank draws alike: tokens and labels (B, S)."""
+    rng = np.random.default_rng(SEED)
+    shape = (LM_MESH_TRAIN_B, LM_MESH_TRAIN_S)
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                                      device="cuda"),
+            "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                                      device="cuda")}
+
+
+def lm_mesh_train_run(kind, arch, shape, layers, **kw):
+    """One run of ``_lm_mesh_train_rank``: ``kind`` 'parity' (mesh steps
+    against no-mesh steps), 'moe' (bf16 steps with int8 moments; ``save``:
+    a sharded save and restore, ``profile``: one more step's device ms) or
+    'loop' (train_loop(mesh=) at full depth, then timed steps)."""
+    return dict(kind=kind, arch=arch, shape=list(shape), layers=layers, **kw)
+
+
+def _timed_steps(step, state, batch, n):
+    """``n`` steps, each timed on the host clock to a synchronize (with a
+    barrier first, so a rank waits for the others before its clock
+    starts); returns (state, losses, seconds)."""
+    import torch.distributed as dist
+    losses, secs = [], []
+    for _ in range(n):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return state, losses, secs
+
+
+def _step_device_ms(step, state, batch):
+    """Device ms and NCCL ms of one more step on this rank (torch.profiler,
+    kernels by name)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    kern = [ev for ev in prof.key_averages() if ev.self_device_time_total > 0
+            and not ev.key.startswith(("Memcpy", "Memset"))]
+    return state, (sum(ev.self_device_time_total for ev in kern) / 1e3,
+                   sum(ev.self_device_time_total for ev in kern
+                       if "nccl" in ev.key.lower()) / 1e3)
+
+
+def _leaf_errors(state, want, mesh):
+    """The worst rel error (of each leaf's max over the whole tensor) of the
+    mesh state's parameter and moment leaves against the no-mesh state's,
+    each rank comparing its shards with the same slices of its own no-mesh
+    copy; max over ranks (a collective).  Returns (error, leaf)."""
+    import torch.distributed as dist
+    from repro_torch.models.layers import tree_paths
+    from repro_torch.models.sharding import place
+    mine = tree_paths({"params": state["params"], "m": state["opt"]["m"],
+                       "v": state["opt"]["v"]})
+    full = tree_paths({"params": want["params"], "m": want["opt"]["m"],
+                       "v": want["opt"]["v"]})
+    worst, name = 0.0, ""
+    for k, g in mine.items():
+        w = full[k].detach()
+        ref = place(w, g.device_mesh, g.placements).to_local()
+        err = float((g.detach().to_local().float() - ref.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-30)) if ref.numel() else 0.0
+        if err > worst:
+            worst, name = err, k
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, (worst, name))
+    return max(out)
+
+
+def _lm_mesh_train_parity(spec, mesh):
+    """Qwen3-4B (``spec['layers']`` deep, float32 compute) trained
+    LM_MESH_TRAIN_STEPS steps on ``mesh`` with each remat of ``spec`` and
+    without a mesh on this rank's card, from one seed."""
+    from repro_torch.models import Model, transformer
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_step import init_train_state
+    cfg = lm_mesh_config(spec["layers"], "float32", arch=spec["arch"])
+    batch = lm_mesh_train_batch(cfg)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=20, eps=1e-4)
+    transformer.set_remat_policy("dots")
+    free_device_memory()
+    plain = Model.init(cfg, cuda_gen(), device="cuda")
+    want = init_train_state(plain, oc)
+    step = make_train_step(plain, oc, microbatches=2, remat=True)
+    want, want_losses, plain_s = _timed_steps(step, want, batch,
+                                              LM_MESH_TRAIN_STEPS)
+    out = {"n_params": sum(p.numel() for p in plain.parameters()),
+           "plain_losses": want_losses, "plain_s": plain_s, "remat": {}}
+    for remat in spec["remats"]:
+        model = Model.init(cfg, cuda_gen(), mesh=mesh)
+        state = init_train_state(model, oc)
+        step = make_train_step(model, oc, microbatches=2,
+                               remat=remat != "off")
+        state, losses, secs = _timed_steps(step, state, batch,
+                                           LM_MESH_TRAIN_STEPS)
+        err, leaf = _leaf_errors(state, want, mesh)
+        out["remat"][remat] = {
+            "losses": losses, "s": secs, "leaf_rel": err, "leaf": leaf,
+            "loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(losses, want_losses))}
+        del model, state, step
+        free_device_memory()
+    del plain, want
+    free_device_memory()
+    return out
+
+
+def _lm_mesh_train_moe(spec, mesh, shape, build):
+    """DeepSeek-V2 (``spec['layers']`` deep, bf16, int8 moments, capacity
+    factor 1.25) trained on ``mesh``: step seconds, losses, peak memory;
+    with ``profile`` one more step's device and NCCL ms; with ``save`` the
+    state of layer group 0 but its routed experts saved sharded (rank 0
+    writes) and restored bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.train_step import init_train_state
+    cfg = lm_mesh_config(spec["layers"], arch=spec["arch"])
+    batch = lm_mesh_train_batch(cfg)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=20, int8_states=True)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model.init(cfg, cuda_gen(), mesh=mesh)
+    state = init_train_state(model, oc)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "n_params": sum(p.numel() for p in model.parameters())}
+    step = make_train_step(model, oc, microbatches=2, remat=False)
+    state, out["losses"], out["s"] = _timed_steps(step, state, batch,
+                                                  LM_MESH_TRAIN_STEPS)
+    if spec.get("profile"):
+        state, out["device_ms"] = _step_device_ms(step, state, batch)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if spec.get("save"):
+        def part(tree):
+            g = dict(tree["blocks"][0]["0:mla"])
+            g["ffn"] = {k: v for k, v in g["ffn"].items()
+                        if k not in ("w_g", "w_u", "w_o")}
+            return {"group0": g, "final_norm": tree["final_norm"]}
+        sub = {"params": part(state["params"]),
+               "opt": {"m": part(state["opt"]["m"]),
+                       "v": part(state["opt"]["v"])}}
+        ckpt = os.path.join(build, f"lm_mesh_train_ckpt_{os.getpid()}")
+        mgr = CheckpointManager(ckpt, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(1, sub)
+        back, _ = mgr.restore(tree_map(torch.zeros_like, sub))
+        out["save_restore_s"] = time.perf_counter() - t0
+        pairs = list(zip(tree_leaves(back), tree_leaves(sub), strict=True))
+        out["saved_params"] = sum(b.numel() for b, _ in pairs)
+        out["restore_equal"] = all(
+            a.dtype == b.dtype and tuple(a.placements) == tuple(b.placements)
+            and torch.equal(a.to_local(), b.to_local()) for a, b in pairs)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            import shutil
+            shutil.rmtree(ckpt, ignore_errors=True)
+    nd, n = shape
+    t = LM_MESH_TRAIN_B // 2 * LM_MESH_TRAIN_S // n    # a microbatch's tokens
+    cap1 = math.ceil(t * cfg.moe.top_k / n * cfg.moe.capacity_factor)
+    out["a2a_bytes"] = cap1 * cfg.d_model * 2 * n if n > 1 else 0
+    # rows out and back, forward and backward, per layer and microbatch
+    out["a2a_per_step"] = 4 * spec["layers"] * 2 if n > 1 else 0
+    out["finite"] = all(math.isfinite(v) for v in out["losses"])
+    del model, state, step
+    free_device_memory()
+    return out
+
+
+def _lm_mesh_train_loop(spec, mesh):
+    """Qwen3-4B at published width and depth: train_loop(mesh=) for
+    LM_MESH_TRAIN_STEPS steps (remat off, as the launcher), then the same
+    step on a fresh model timed and profiled."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_step import init_train_state
+    cfg = lm_mesh_config(spec["layers"], "bfloat16", arch=spec["arch"])
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train_loop(cfg, steps=LM_MESH_TRAIN_STEPS,
+                        batch_size=LM_MESH_TRAIN_B, seq_len=LM_MESH_TRAIN_S,
+                        ckpt_dir=None, resume=False, dp=None, microbatches=2,
+                        ckpt_every=0, mesh=mesh, log_every=1)[1]
+    out = {"loop_losses": losses, "loop_s": time.perf_counter() - t0,
+           "loop_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model.init(cfg, cuda_gen(), mesh=mesh)
+    out["n_params"] = sum(p.numel() for p in model.parameters())
+    oc = AdamWConfig(lr=1e-3, warmup_steps=20)
+    state = init_train_state(model, oc)
+    step = make_train_step(model, oc, microbatches=2, remat=False)
+    batch = lm_mesh_train_batch(cfg)
+    state, out["losses"], out["s"] = _timed_steps(step, state, batch,
+                                                  LM_MESH_TRAIN_STEPS + 1)
+    state, out["device_ms"] = _step_device_ms(step, state, batch)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["finite"] = all(math.isfinite(v) for v in out["losses"] + losses)
+    del model, state, step
+    free_device_memory()
+    return out
+
+
+def _lm_mesh_train_rank(rank, world, store, job, out_path):
+    """One NCCL rank of [lm-mesh-train] (spawned): each run of the job on
+    its mesh; rank 0 writes every rank's numbers to ``out_path``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    report = {"world": world, "runs": []}
+    try:
+        for spec in job["runs"]:
+            shape = tuple(spec["shape"])
+            mesh = make_host_mesh("cuda", shape)
+            t0 = time.perf_counter()
+            if spec["kind"] == "parity":
+                res = _lm_mesh_train_parity(spec, mesh)
+            elif spec["kind"] == "moe":
+                res = _lm_mesh_train_moe(spec, mesh, shape, job["build"])
+            else:
+                res = _lm_mesh_train_loop(spec, mesh)
+            res["run_s"] = time.perf_counter() - t0
+            res["card_gib"] = torch.cuda.get_device_properties(
+                torch.cuda.current_device()).total_memory / 2**30
+            ranks = [None] * world
+            dist.all_gather_object(ranks, res)
+            report["runs"].append(dict(spec, ranks=ranks))
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_mesh_train_print(report, gates=True):
+    """Print a report of ``_lm_mesh_train_rank`` and hold it to the gates."""
+    world = report["world"]
+    for run in report["runs"]:
+        r0, ranks = run["ranks"][0], run["ranks"]
+        tag = (f"[lm-mesh-train] world {world} mesh {tuple(run['shape'])} "
+               f"{run['arch']} {run['layers']} layers")
+        if run["kind"] == "parity":
+            print(f"{tag} ({r0['n_params'] / 1e9:.3f}B parameters, float32 "
+                  f"compute, TF32 off, {LM_MESH_TRAIN_B} x {LM_MESH_TRAIN_S} "
+                  f"tokens in 2 microbatches, AdamW float32 moments): no-mesh "
+                  f"losses {r0['plain_losses']}, steps "
+                  f"{[round(x, 4) for x in r0['plain_s']]} s")
+            for remat, res in r0["remat"].items():
+                print(f"{tag} remat '{remat}': losses {res['losses']}, steps "
+                      f"{[round(x, 4) for x in res['s']]} s; loss rel "
+                      f"{res['loss_rel']:.3e} (bound {LM_MESH_TRAIN_REL_LOSS}); "
+                      f"worst parameter/moment leaf rel {res['leaf_rel']:.3e} "
+                      f"({res['leaf']}; bound {LM_MESH_TRAIN_REL})")
+                if gates:
+                    assert res["loss_rel"] < LM_MESH_TRAIN_REL_LOSS, res
+                    assert res["leaf_rel"] < LM_MESH_TRAIN_REL, res
+            continue
+        tokens = LM_MESH_TRAIN_B * LM_MESH_TRAIN_S
+        secs = [max(r["s"][i] for r in ranks) for i in range(len(r0["s"]))]
+        line = (f"{tag} ({r0['n_params'] / 1e9:.3f}B parameters, "
+                f"{LM_MESH_TRAIN_B} x {LM_MESH_TRAIN_S} tokens in 2 "
+                f"microbatches, remat off"
+                + (", bf16, int8 moments, cf "
+                   f"{lm_mesh_config(1).moe.capacity_factor}"
+                   if run["kind"] == "moe" else ", float32 moments") + "): "
+                f"losses {r0['losses']}; step s (slowest rank) "
+                f"{[round(x, 4) for x in secs]}, {tokens / secs[-1]:.1f} "
+                f"tokens/s at the last; peak GiB per rank "
+                f"{[round(r['peak_gib'], 3) for r in ranks]} of "
+                f"{r0['card_gib']:.1f}")
+        if "device_ms" in r0:
+            line += (f"; one step's device ms per rank "
+                     f"{[round(r['device_ms'][0], 2) for r in ranks]}, of it "
+                     f"NCCL {[round(r['device_ms'][1], 2) for r in ranks]}")
+        if run["kind"] == "moe" and r0["a2a_bytes"]:
+            line += (f"; all_to_all bytes out of a rank per dispatch "
+                     f"{r0['a2a_bytes']:,}, {r0['a2a_per_step']} activation "
+                     f"all_to_alls a step")
+        if run["kind"] == "loop":
+            line += (f"; train_loop(mesh=) losses {r0['loop_losses']} in "
+                     f"{r0['loop_s']:.1f} s, peak GiB per rank "
+                     f"{[round(r['loop_peak_gib'], 3) for r in ranks]}")
+        print(line)
+        if "restore_equal" in r0:
+            print(f"{tag}: sharded save and restore of layer group 0's state "
+                  f"but its routed experts ({r0['saved_params'] / 1e6:.1f}M "
+                  f"values: bf16 parameters, int8 q, float32 s) "
+                  f"{r0['save_restore_s']:.2f} s, bit-equal "
+                  f"{all(r['restore_equal'] for r in ranks)}")
+        if gates:
+            assert all(r["finite"] for r in ranks), run
+            if "restore_equal" in r0:
+                assert all(r["restore_equal"] for r in ranks), run
+
+
+def lm_mesh_train_one_card_runs(moe_layers=LM_MESH_TRAIN_MOE_LAYERS):
+    """The (1, 1) runs of [lm-mesh-train]."""
+    return [lm_mesh_train_run("parity", LM_MESH_GQA, (1, 1),
+                              LM_MESH_GQA_LAYERS, remats=["dots", "off"]),
+            lm_mesh_train_run("moe", LM_MESH_ARCH, (1, 1), moe_layers,
+                              save=True)]
+
+
+def phase_lm_mesh_train(card):
+    """[lm-mesh-train] the LM plane's training on a mesh (Model.loss_fn,
+    make_train_step, AdamW with int8 moments on DTensors, sharded
+    checkpoints) at (1, 1) through a one-rank NCCL group (a FileStore under
+    build/, NCCL_SOCKET_IFNAME=lo).
+
+    (a) Qwen3-4B at published width, 4 of 36 layers, float32 compute with
+    TF32 off, 8 x 128 tokens in 2 microbatches: two steps on the mesh with
+    remat "dots" and with remat off, against two no-mesh steps on the same
+    card from the same seed.  Gates: each step's loss within rel 1e-5, every
+    parameter and moment leaf within rel 1e-4 of its max.  (b)
+    DeepSeek-V2-236B at published width, LM_MESH_TRAIN_MOE_LAYERS of 60
+    layers, seeded bf16 weights, int8 moments, capacity factor 1.25 (the
+    model axis is 1, so its MoE runs the dense path): two steps, their
+    seconds and peak memory; gates: finite losses, and layer group 0's
+    state but its routed experts saved sharded and restored bit-equal.
+    The four-card runs: tools/lm_mesh.py --train."""
+    t_phase = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    report = lm_mesh_spawn({"runs": lm_mesh_train_one_card_runs(),
+                            "build": "build"}, 1, "train",
+                           target=_lm_mesh_train_rank)
+    lm_mesh_train_print(report)
+    print(f"[lm-mesh-train] {time.perf_counter() - t_phase:.1f} s in all")
+    return report
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3843,6 +4219,7 @@ def main() -> int:
     lm_train_counts = phase_lm_train(card)
     free_device_memory()
     phase_lm_mesh(card)
+    phase_lm_mesh_train(card)
     counts = (adult_counts, synth_counts) + rplus_counts + (
         tune_counts, bf16_counts) + secure_counts + release_counts \
         + slice_counts + (serve_counts,) + baseline_counts + (lm_train_counts,)

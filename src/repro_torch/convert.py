@@ -164,16 +164,47 @@ def _on_mesh(tree, defs, mesh):
         param_spec(mesh, pd.axes)), tree, defs)
 
 
-def train_state_from_jax(cfg, state: dict) -> dict:
+def train_state_from_jax(cfg, state: dict, mesh=None) -> dict:
     """The port's training state from the JAX package's ``TrainState``
     (nested dicts of numpy arrays): ``params`` as :func:`lm_params_from_jax`
     splits them, the AdamW moments ``m`` and ``v`` (float32 leaves, or int8
     ``{"q", "s"}`` pairs) split the same way, and ``count``.  The JAX
     ``rng`` key is not carried across: the two packages draw from different
-    generators, and the port seeds its own (``init_train_state``)."""
+    generators, and the port seeds its own (``init_train_state``).  With
+    ``mesh`` (every rank passing the same arrays) the parameters are placed
+    as :func:`lm_params_from_jax` places them, and the moments as the
+    reference's ``_opt_axes_like``: a float32 moment and an int8 ``q`` like
+    their parameter, ``s`` like it but for its last axis."""
     counts = _group_counts(cfg)
     opt = state["opt"]
-    return {"params": _unstack_groups(state["params"], counts),
-            "opt": {"m": _unstack_groups(opt["m"], counts),
-                    "v": _unstack_groups(opt["v"], counts),
-                    "count": np.asarray(opt["count"])}}
+    params = _unstack_groups(state["params"], counts)
+    m = _unstack_groups(opt["m"], counts)
+    v = _unstack_groups(opt["v"], counts)
+    if mesh is not None:
+        from repro_torch.models.transformer import model_defs
+        defs = model_defs(cfg)
+        params = _on_mesh(params, defs, mesh)
+        m, v = _moments_on_mesh(m, defs, mesh), _moments_on_mesh(v, defs, mesh)
+    return {"params": params, "opt": {"m": m, "v": v,
+                                      "count": np.asarray(opt["count"])}}
+
+
+def _moments_on_mesh(tree, defs, mesh):
+    """A moment tree's leaves as DTensors: a float32 leaf or an int8 ``q``
+    placed by its parameter's axes, an int8 ``s`` by them with the last
+    axis whole."""
+    import torch
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.sharding import distribute, param_spec
+
+    def put(a, axes):
+        return distribute(torch.tensor(np.asarray(a), device=mesh.device_type),
+                          param_spec(mesh, axes))
+
+    def one(pd, a):
+        if isinstance(a, dict):
+            return {"q": put(a["q"], pd.axes),
+                    "s": put(a["s"], pd.axes[:-1] + (None,))}
+        return put(a, pd.axes)
+
+    return tree_map(one, defs, tree)

@@ -1,6 +1,6 @@
 """Training entry point: the train loop with checkpointing, preemption-safe
 resume, a straggler watchdog and optional DP-SGD; the port of
-``repro.launch.train`` on one device.
+``repro.launch.train``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --no-reduced --arch xlstm-350m
@@ -9,10 +9,15 @@ Runs on CUDA unless ``--device cpu``.  The loop runs without remat, as the
 reference's does, so at full width one NVIDIA H100 80GB HBM3 trains the
 smaller models only: Qwen3-4B's float32 parameters, gradients and moments
 alone take 65.7 GiB, and its saved bf16 weight casts do not fit beside
-them.  Training runs on one device: the reference's ``mesh`` argument and
-its ``sharding_rules`` context around the step wait for training on a mesh
-(ROADMAP item 15; serving on a mesh is ported, ``Model.init(...,
-mesh=)``).  Three behaviours differ from the reference on purpose:
+them.  ``train_loop(..., mesh=)`` trains on a ``DeviceMesh``
+(:mod:`repro_torch.launch.mesh`; the caller starts the process group and
+every rank calls it alike): the seeded weights are drawn whole and each
+rank keeps its shards, every rank runs the same token stream, the model
+runs its step in the mesh's sharding context, and rank 0 logs and commits
+the checkpoints, which hold the full global arrays.  Four cards train
+Qwen3-4B so (``tools/lm_mesh.py --train``).  DP-SGD on a mesh is not
+ported (ROADMAP item 15) and raises.  The command line trains on one
+device.  Three behaviours differ from the reference on purpose:
 
 * ``--reduced`` can be switched off (``--no-reduced``): the reference
   declares it ``store_true`` with ``default=True``, so its full-config
@@ -32,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, load_all
 from repro_torch.configs.shapes import reduced_config
@@ -79,24 +85,34 @@ def _batch(cfg, b, it: int, batch_size: int, seq_len: int, dev):
 
 
 def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
-               ckpt_dir: str, resume: bool, dp: DPSGDConfig | None,
-               microbatches: int, ckpt_every: int, log_every: int = 10,
-               seed: int = 0, device=None):
+               ckpt_dir: str | None, resume: bool, dp: DPSGDConfig | None,
+               microbatches: int, ckpt_every: int, mesh=None,
+               log_every: int = 10, seed: int = 0, device=None):
     """Train ``cfg`` from seeded weights for ``steps`` steps (from the
-    latest checkpoint with ``resume``); returns (state, this run's losses)."""
-    dev = resolve_device(device)
-    model = Model.init(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+    latest checkpoint with ``resume``); returns (state, this run's losses).
+    On ``mesh`` (every rank calling alike) the state's leaves are DTensors
+    and the losses are the whole batch's on every rank.  ``ckpt_dir=None``
+    trains without checkpoints (a full-width Qwen3-4B state is 53 GB)."""
+    if dp is not None and mesh is not None:
+        raise NotImplementedError(
+            "DP-SGD on a mesh is not ported yet (ROADMAP item 15); pass "
+            "dp=None or mesh=None")
+    dev = resolve_device(device if mesh is None else mesh.device_type)
+    model = Model.init(cfg, torch.Generator(dev).manual_seed(seed),
+                       device=dev, mesh=mesh)
+    lead = mesh is None or dist.get_rank() == 0   # logs for the mesh
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=20,
                           int8_states=(cfg.param_dtype == "bfloat16"))
     step_fn = make_train_step(model, opt_cfg, microbatches=microbatches,
                               dp=dp, remat=False)
-    mgr = CheckpointManager(ckpt_dir, keep=3)
+    mgr = None if ckpt_dir is None else CheckpointManager(ckpt_dir, keep=3)
     state = init_train_state(model, opt_cfg, seed)
     start = 0
-    if resume and mgr.latest_step() is not None:
+    if resume and mgr is not None and mgr.latest_step() is not None:
         state, manifest = mgr.restore(state)
         start = manifest["step"]
-        print(f"[train] resumed from step {start}")
+        if lead:
+            print(f"[train] resumed from step {start}")
     acct = DPSGDAccountant(dp) if dp else None
     gen = synthetic_lm_batches(cfg.vocab_size, batch_size, seq_len, seed=seed)
     for _ in range(start):           # the batches the earlier steps consumed
@@ -108,23 +124,25 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         t0 = time.time()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
-        wd.observe(time.time() - t0)
+        if lead:
+            wd.observe(time.time() - t0)
         if acct:
             acct.charge_step()
         losses.append(loss)
-        if it % log_every == 0:
+        if lead and it % log_every == 0:
             msg = f"[train] step {it} loss {loss:.4f}"
             if acct:
                 r = acct.report()
                 msg += (f" | dp: ρ={r['rho_zcdp']:.4f} "
                         f"ε(δ=1e-6)={r['eps_at_delta_1e-6']:.2f}")
             print(msg, flush=True)
-        if ckpt_every and (it + 1) % ckpt_every == 0 and it + 1 < steps:
+        if mgr and ckpt_every and (it + 1) % ckpt_every == 0 and it + 1 < steps:
             mgr.save(it + 1, state, {"arch": cfg.name, "loss": loss},
                      blocking=False)
-    mgr.save(steps, state, {"arch": cfg.name,
-                            "loss": losses[-1] if losses else None})
-    mgr.wait()
+    if mgr:
+        mgr.save(steps, state, {"arch": cfg.name,
+                                "loss": losses[-1] if losses else None})
+        mgr.wait()
     return state, losses
 
 

@@ -18,7 +18,10 @@ repeats K/V, splits the padded heads (``heads_shard``) and adds the
 partial outputs; a decode step writes its slot on the rank that holds it
 and runs split-K over the cache length (``kv_seq``), its softmax max and
 sums taken across ranks.  :func:`swiglu_apply` shards d_ff over ``model``
-(``dff``).  Two behaviours differ from the reference on purpose:
+(``dff``).  In training the 'seq' output gather hands each rank its rows'
+gradient, the 'heads' and SwiGLU all-reduces pass theirs through, and the
+inputs' gradients leave the regions partial over ``model``; the decode
+paths are not trained.  Two behaviours differ from the reference on purpose:
 
 * :func:`blockwise_attention` masks its KV padding in causal mode too (the
   reference masks it only when ``causal=False``, so zero-padded keys enter

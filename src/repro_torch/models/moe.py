@@ -39,13 +39,13 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from .config import torch_dtype
 from .layers import PDef
-from .sharding import (ACT, all_gather_dim, all_reduce, axis_rank,
-                       axis_size, chunk_bounds, current_mesh, is_dtensor,
+from .sharding import (ACT, all_gather_dim, all_reduce, all_to_all, axis_rank,
+                       axis_size, batch_axis_names, chunk_bounds, copy_in,
+                       current_mesh, gather_scatter_dim, is_dtensor,
                        reduce_scatter_dim, region)
 
 _STATS: Dict[str, Any] = {"ep_dispatch": 0, "ep_replicated": 0, "dense": 0,
@@ -118,25 +118,37 @@ def _route_probs(x_flat, router_w, mo):
     return top_w, top_e, probs
 
 
-def _switch_aux(probs, top_e, E: int):
-    """Switch-style load-balancing aux loss over the given tokens."""
+def _switch_aux(probs, top_e, E: int, mesh=None):
+    """Switch-style load-balancing aux loss over the given tokens; with
+    ``mesh``, over the tokens of every batch shard (each holding as many):
+    the expert densities and mean probabilities averaged over the batch
+    axes before their product."""
     density = (top_e[..., :1] == torch.arange(E, device=top_e.device)) \
         .float().mean(dim=0)
-    return E * torch.sum(density * probs.mean(dim=0))
+    mean_p = probs.mean(dim=0)
+    if mesh is not None:
+        nb = 1
+        for a in batch_axis_names(mesh):
+            density = all_reduce(density, mesh, a)
+            mean_p = all_reduce(mean_p, mesh, a)
+            nb *= axis_size(mesh, a)
+        density, mean_p = density / nb, mean_p / nb
+    return E * torch.sum(density * mean_p)
 
 
-def _route(x_flat, router_w, mo):
+def _route(x_flat, router_w, mo, mesh=None):
     top_w, top_e, probs = _route_probs(x_flat, router_w, mo)
-    return top_w, top_e, _switch_aux(probs, top_e, mo.n_experts)
+    return top_w, top_e, _switch_aux(probs, top_e, mo.n_experts, mesh)
 
 
-def _moe_dense_fallback(p, x, cfg):
-    """Every expert on every token, gated by the routing weights."""
+def _moe_dense_fallback(p, x, cfg, mesh=None):
+    """Every expert on every token, gated by the routing weights; on a
+    mesh (this rank's batch rows) the auxiliary loss is the whole batch's."""
     B, S, d = x.shape
     mo = cfg.moe
     cdt = torch_dtype(cfg.compute_dtype)
     xf = x.reshape(-1, d).to(cdt)
-    top_w, top_e, aux = _route(xf, p["router"], mo)
+    top_w, top_e, aux = _route(xf, p["router"], mo, mesh)
     h = F.silu(torch.einsum("td,edf->tef", xf, p["w_g"].to(cdt)))
     u = torch.einsum("td,edf->tef", xf, p["w_u"].to(cdt))
     outs = torch.einsum("tef,efd->ted", h * u, p["w_o"].to(cdt))
@@ -195,11 +207,8 @@ def _ep_dispatch(p, xf, top_w, top_e, *, mo, cdt, mesh):
     send_idx = torch.where(keep1, dest * cap1 + slot1, n * cap1)
     send = _scatter_rows(send_idx, xf[src], n * cap1)
     send_e = _scatter_rows(send_idx, local_e, n * cap1, fill=-1)  # -1: empty
-    group = mesh.get_group("model")
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    recv_e = torch.empty_like(send_e)
-    dist.all_to_all_single(recv_e, send_e, group=group)
+    recv = all_to_all(send, mesh, "model")
+    recv_e = all_to_all(send_e, mesh, "model")
     valid = recv_e >= 0
 
     cap2 = int(math.ceil(n * cap1 / e_loc * mo.capacity_factor))
@@ -211,8 +220,7 @@ def _ep_dispatch(p, xf, top_w, top_e, *, mo, cdt, mesh):
     out = _expert_ffn(buf, p["w_g"], p["w_u"], p["w_o"], cdt)  # partial over f
     back = out.reshape(-1, d)[buf_idx.clamp_max(e_loc * cap2 - 1)]
     back = back * keep2[:, None].to(back.dtype)
-    ret = torch.empty_like(back)
-    dist.all_to_all_single(ret, back.contiguous(), group=group)
+    ret = all_to_all(back, mesh, "model")
     gathered = ret[send_idx.clamp_max(n * cap1 - 1)]
     _count_dropped((~keep1).sum() + (valid & ~keep2).sum(), mesh)
     return _combine(gathered, keep1, top_w, t, k, cdt)
@@ -221,7 +229,11 @@ def _ep_dispatch(p, xf, top_w, top_e, *, mo, cdt, mesh):
 def _ep_replicated(p, xf, top_w, top_e, *, mo, cdt, mesh):
     """Decode EP body (the reference's ``_moe_replicated_local``): every
     ``model`` rank holds all tokens, runs only its own experts, and the
-    outputs are added over ``model``."""
+    outputs are added over ``model``.  The rest of the region is computed
+    alike on every ``model`` rank, so the tokens and weights enter the
+    experts through :func:`copy_in`: their gradients, partial over
+    ``model`` in here, leave it whole."""
+    xf, top_w = copy_in(xf, mesh, "model"), copy_in(top_w, mesh, "model")
     n = axis_size(mesh, "model")
     t, d = xf.shape
     k = mo.top_k
@@ -244,7 +256,13 @@ def _ep_replicated(p, xf, top_w, top_e, *, mo, cdt, mesh):
 def _moe_ep_local(x, p, *, cfg, mesh):
     """The region body on local shards: x (b_loc, S, d) this rank's batch
     rows (all of the sequence), the router whole, this rank's experts and
-    their d_ff slice.  Returns (y (b_loc, S, d), aux)."""
+    their d_ff slice.  Returns (y (b_loc, S, d), aux).
+
+    In training: the gather over ``data`` is reduce-scattered back (each
+    data rank runs its d_ff slice on every gathered token), the
+    reduce-scatter of the outputs all-gathered, the all_to_alls reversed;
+    the sequence slice over ``model`` and its all-gather follow the
+    replicated consumer (the gradient of this rank's rows is its chunk)."""
     mo = cfg.moe
     cdt = torch_dtype(cfg.compute_dtype)
     n = axis_size(mesh, "model")
@@ -254,8 +272,7 @@ def _moe_ep_local(x, p, *, cfg, mesh):
         lo, hi = chunk_bounds(S, n, axis_rank(mesh, "model"))
         x = x[:, lo:hi]
     s_loc = x.shape[1]
-    nd = axis_size(mesh, "data")
-    xs = all_gather_dim(x.contiguous(), 0, mesh, "data", b_loc * nd)
+    xs = gather_scatter_dim(x, 0, mesh, "data")
     xf = xs.reshape(-1, d).to(cdt)
     top_w, top_e, probs = _route_probs(xf, p["router"], mo)
     own = slice(axis_rank(mesh, "data") * b_loc * s_loc,
@@ -271,10 +288,14 @@ def _moe_ep_local(x, p, *, cfg, mesh):
     y = reduce_scatter_dim(y.reshape(-1, s_loc, d), 0, mesh, "data")
     if seq_shardable:
         y = all_gather_dim(y.contiguous(), 1, mesh, "model", S)
-    aux = aux.reshape(1)
-    for axis in mesh.mesh_dim_names:                   # pmean over the mesh
-        aux = all_reduce(aux, mesh, axis)
-    return y.to(x.dtype), (aux / mesh.size()).reshape(())
+    # the mean over the mesh of each shard's own aux; the model ranks of the
+    # replicated body route the same tokens, so it averages over the rest
+    aux, count = aux.reshape(1), 1
+    for axis in mesh.mesh_dim_names:
+        if seq_shardable or axis != "model":
+            aux = all_reduce(aux, mesh, axis)
+            count *= axis_size(mesh, axis)
+    return y.to(x.dtype), (aux / count).reshape(())
 
 
 def moe_apply(p, x, *, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -286,10 +307,11 @@ def moe_apply(p, x, *, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
         return _moe_dense_fallback(p, x, cfg)
     mesh = current_mesh()
     keys = sorted(p)
-    if axis_size(mesh, "model") == 1:
+    n = axis_size(mesh, "model")
+    if n == 1:
         def body(x, *leaves):
             _STATS["dense"] += 1
-            return _moe_dense_fallback(dict(zip(keys, leaves)), x, cfg)
+            return _moe_dense_fallback(dict(zip(keys, leaves)), x, cfg, mesh)
         names = [(None,) * p[k].dim() for k in keys]
     else:
         if cfg.moe.n_experts % axis_size(mesh, "model"):
@@ -300,5 +322,8 @@ def moe_apply(p, x, *, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
             return _moe_ep_local(x, dict(zip(keys, leaves)), cfg=cfg, mesh=mesh)
         defs = moe_defs(cfg)
         names = [defs[k].axes for k in keys]
+    # the model ranks split the sequence (EP dispatch) or route alike
+    # (replicated body, S not a multiple of the model axis)
     return region(body, (x,) + tuple(p[k] for k in keys),
-                  [("batch", None, None)] + names, (ACT, ()))
+                  [("batch", None, None)] + names, (ACT, ()),
+                  split_model=x.shape[1] % n == 0)

@@ -13,7 +13,9 @@ On a mesh the reference constrains nothing inside these mixers, so each
 runs as a region over this rank's batch rows with its weights gathered
 (:func:`repro_torch.models.sharding.mixer_region`); its states leave placed
 by the cache axes (RG-LRU's ``h`` split over ``model`` along
-``rnn_state``).
+``rnn_state``).  Every ``model`` rank computes the same thing, so in
+training the gradients leave the region replicated over ``model`` and
+partial over the batch axes.
 """
 from __future__ import annotations
 
@@ -37,11 +39,12 @@ RNN_CACHE_AXES = {
 
 def _on_mesh(fn, kind, p, x, cfg, mode, cache, pos):
     """``fn`` as a region over local shards (its ``mesh`` argument unused:
-    the math is the one-device math on this rank's batch rows)."""
+    the math is the one-device math on this rank's batch rows, the same on
+    every ``model`` rank, so the gradients are not partial over it)."""
     return mixer_region(lambda p, x, cache, mesh, **kw: fn(p, x, cache=cache,
                                                            **kw),
                         p, x, cache=cache, cache_axes=RNN_CACHE_AXES[kind],
-                        cfg=cfg, mode=mode, pos=pos)
+                        split_model=False, cfg=cfg, mode=mode, pos=pos)
 
 # ---------------------------------------------------------------------------
 # RG-LRU (Griffin): h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)

@@ -19,6 +19,15 @@ entries.  :func:`placements` turns it into a DTensor placement list, one
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
 ``mesh_dim_names`` (:mod:`repro_torch.launch.mesh` builds them); its
 process groups must exist before it does, so nothing here starts one.
+
+Training runs through the same regions.  Their collectives are autograd
+functions with Megatron's conjugate backward (:func:`all_reduce` out of a
+region: identity; :func:`copy_in`: all-reduce; :func:`all_gather_dim` for a
+consumer every rank computes alike: this rank's chunk;
+:func:`gather_scatter_dim` and :func:`reduce_scatter_dim`: each other's
+collective; :func:`all_to_all`: the reverse exchange), and a region's
+inputs leave it with the gradient placements of :func:`grad_placements`,
+which DTensor's redistribute then reduces into each parameter's layout.
 """
 from __future__ import annotations
 
@@ -152,8 +161,11 @@ def param_spec(mesh, logical_axes: Sequence[Optional[str]],
     return spec_for(mesh, *logical_axes, rules=rules)
 
 
+BATCH_AXES = ("pod", "data")     # the mesh axes a batch splits over
+
+
 def batch_axis_names(mesh) -> Tuple[str, ...]:
-    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    return tuple(a for a in BATCH_AXES if a in mesh.mesh_dim_names)
 
 
 # ---------------------------------------------------------------------------
@@ -184,28 +196,37 @@ def distribute(full: torch.Tensor, sharding: NamedSharding):
     """A DTensor of ``sharding`` whose global value is ``full``, a tensor
     every rank holds alike (drawn from one seed, or read from one file).
     Each rank keeps its own slice; nothing is communicated."""
-    from torch.distributed.tensor import DTensor, Shard
-    mesh = sharding.mesh
+    return place(full, sharding.mesh, sharding.placements)
+
+
+def place(full: torch.Tensor, mesh, pl):
+    """:func:`distribute` onto the placements ``pl`` of ``mesh`` (those of
+    an existing DTensor, say)."""
+    from torch.distributed.tensor import Shard
     local = full
-    for i, pl in enumerate(sharding.placements):
-        if isinstance(pl, Shard):
-            lo, hi = chunk_bounds(local.shape[pl.dim], mesh.size(i),
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            lo, hi = chunk_bounds(local.shape[p.dim], mesh.size(i),
                                   mesh.get_local_rank(i))
-            local = local.narrow(pl.dim, lo, hi - lo)
+            local = local.narrow(p.dim, lo, hi - lo)
     if local.data_ptr() != full.data_ptr() or local.numel() != full.numel():
         local = local.clone(memory_format=torch.contiguous_format)
-    return DTensor.from_local(local, mesh, sharding.placements,
-                              run_check=False, shape=full.shape,
-                              stride=_stride(full.shape))
+    return wrap_local(local, mesh, pl, full.shape)
 
 
 def from_local(local: torch.Tensor, mesh, spec_names: Sequence[Optional[str]],
                shape: Sequence[int]):
     """A DTensor over ``local``, this rank's shard of a tensor of global
     ``shape`` placed by the logical ``spec_names`` under the active rules."""
-    from torch.distributed.tensor import DTensor
     rules = current_rules() or DEFAULT_RULES
     pl = placements(_resolve(spec_names, mesh.mesh_dim_names, rules), mesh)
+    return wrap_local(local, mesh, pl, shape)
+
+
+def wrap_local(local: torch.Tensor, mesh, pl, shape):
+    """A DTensor of global ``shape`` over ``local``, this rank's shard
+    placed ``pl``."""
+    from torch.distributed.tensor import DTensor
     return DTensor.from_local(local, mesh, pl, run_check=False,
                               shape=torch.Size(shape), stride=_stride(shape))
 
@@ -259,71 +280,250 @@ def gathered(names: Sequence[Optional[str]]) -> Tuple[Optional[str], ...]:
     return tuple(n if n == "batch" else None for n in names)
 
 
+# The collectives of the mesh regions, each with the backward its use needs
+# (Megatron's conjugate pairs): a region's inputs enter through
+# ``to_local(grad_placements=)`` (:func:`grad_placements`), so these carry
+# only what the region does inside.
+
+class _ReduceOut(torch.autograd.Function):
+    """All-reduce (sum) forward, identity backward: a region's partial sums
+    leaving it for a consumer that every rank computes alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward, all-reduce (sum) backward: a value every rank
+    holds alike entering work that each rank does differently."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _gather0(x: torch.Tensor, n: int, size: int, group) -> torch.Tensor:
+    """The (n * size, ...) concatenation of each rank's ``x`` (its first dim
+    zero-padded to ``size`` rows)."""
+    if x.shape[0] < size:
+        x = torch.cat([x, x.new_zeros((size - x.shape[0],) + x.shape[1:])])
+    out = x.new_empty((n * size,) + x.shape[1:])
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _scatter0(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """This rank's chunk of the first dim of the sum of ``x`` over ranks."""
+    out = x.new_empty((x.shape[0] // n,) + x.shape[1:])
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+class _GatherSlice(torch.autograd.Function):
+    """All-gather forward (dim 0, chunks of ``chunk_bounds``), this rank's
+    chunk of the gradient backward: the gathered value's consumer is
+    computed alike on every rank, so its gradient is whole on each."""
+
+    @staticmethod
+    def forward(ctx, x, n, rank, total, group):
+        ctx.bounds = chunk_bounds(total, n, rank)
+        return _gather0(x, n, -(-total // n), group)[:total]
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi = ctx.bounds
+        return g[lo:hi], None, None, None, None
+
+
+class _GatherScatter(torch.autograd.Function):
+    """All-gather forward (dim 0, even chunks), reduce-scatter backward:
+    the gathered value feeds work that each rank does differently."""
+
+    @staticmethod
+    def forward(ctx, x, n, group):
+        ctx.n, ctx.group = n, group
+        return _gather0(x, n, x.shape[0], group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter0(g, ctx.n, ctx.group), None, None
+
+
+class _ScatterGather(torch.autograd.Function):
+    """Reduce-scatter forward (dim 0, even chunks), all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, n, group):
+        ctx.n, ctx.group = n, group
+        return _scatter0(x, n, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather0(g, ctx.n, g.shape[0], ctx.group), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal chunks forward; the same exchange of
+    the gradient backward (each rank's chunk goes back where it came
+    from)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
 def all_reduce(x: torch.Tensor, mesh, axis: str, op=None) -> torch.Tensor:
-    """The sum (or ``op``) of ``x`` over the ranks of mesh axis ``axis``."""
+    """The sum (or ``op``) of ``x`` over the ranks of mesh axis ``axis``.
+    The sum's backward is the identity (a region's partial sums leaving
+    it); another ``op`` carries no gradient."""
     if axis_size(mesh, axis) == 1:
         return x
-    x = x.contiguous()
-    dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=mesh.get_group(axis))
+    group = mesh.get_group(axis)
+    if op in (None, dist.ReduceOp.SUM) and torch.is_grad_enabled() \
+            and x.requires_grad:
+        return _ReduceOut.apply(x, group)
+    x = x.detach().contiguous()     # no gradient: in place, as dist does
+    dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
     return x
+
+
+def copy_in(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` itself; in the backward its gradient summed over mesh axis
+    ``axis`` (a value alike on every rank entering work each does
+    differently)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _CopyIn.apply(x, mesh.get_group(axis))
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, mesh, axis: str,
                    total: int) -> torch.Tensor:
     """The chunks of a dim of ``total`` rows split over mesh axis ``axis``
     (``chunk_bounds``), this rank's chunk ``x``, put back together on every
-    rank."""
+    rank.  Backward: this rank's chunk of the gradient, which the
+    consumers, computed alike on every rank, give whole."""
     n = axis_size(mesh, axis)
     if n == 1:
         return x
-    size = -(-total // n)
-    xm = x.movedim(dim, 0)
-    if xm.shape[0] < size:
-        xm = torch.cat([xm, xm.new_zeros((size - xm.shape[0],) + xm.shape[1:])])
-    out = xm.new_empty((n * size,) + xm.shape[1:])
-    dist.all_gather_into_tensor(out, xm.contiguous(),
-                                group=mesh.get_group(axis))
-    return out[:total].movedim(0, dim)
+    out = _GatherSlice.apply(x.movedim(dim, 0), n, axis_rank(mesh, axis),
+                             total, mesh.get_group(axis))
+    return out.movedim(0, dim)
+
+
+def gather_scatter_dim(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated along ``dim`` over
+    mesh axis ``axis``; backward, the gradient reduce-scattered (each rank
+    worked differently on the gathered rows)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    out = _GatherScatter.apply(x.movedim(dim, 0), n, mesh.get_group(axis))
+    return out.movedim(0, dim)
 
 
 def reduce_scatter_dim(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
     """This rank's chunk along ``dim`` of the sum of ``x`` over mesh axis
-    ``axis``; ``dim`` must split evenly over the axis."""
+    ``axis``; ``dim`` must split evenly over the axis.  Backward: the
+    gradient all-gathered."""
     n = axis_size(mesh, axis)
     if n == 1:
         return x
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over "
                          f"mesh axis {axis!r} of {n}")
-    xm = x.movedim(dim, 0).contiguous()
-    out = xm.new_empty((xm.shape[0] // n,) + xm.shape[1:])
-    dist.reduce_scatter_tensor(out, xm, group=mesh.get_group(axis))
+    out = _ScatterGather.apply(x.movedim(dim, 0), n, mesh.get_group(axis))
     return out.movedim(0, dim)
 
 
-def region(fn, args: Sequence, arg_names: Sequence, out_names: Sequence):
+def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``all_to_all_single`` of the equal first-dim chunks of ``x`` over
+    mesh axis ``axis``; backward, the gradient's chunks sent back."""
+    return _AllToAll.apply(x, mesh.get_group(axis))
+
+
+def grad_placements(pl, mesh, split_model: bool):
+    """The gradient placements of a region input placed ``pl``: ``Shard``
+    where the input is split (each rank's gradient of its own slice),
+    ``Partial`` over the batch axes where it is replicated (each rank's
+    rows contribute), and over ``model`` when ``split_model`` (the model
+    ranks did different work on it: query rows, heads, d_ff, vocabulary
+    columns, expert tokens); ``Replicate`` where the ranks computed the
+    same thing."""
+    from torch.distributed.tensor import Partial, Shard
+    names = tuple(mesh.mesh_dim_names)
+    return tuple(p if isinstance(p, Shard)
+                 else Partial() if names[i] in BATCH_AXES
+                 or (split_model and names[i] == "model") else p
+                 for i, p in enumerate(pl))
+
+
+def _enter(x, names, mesh, split_model: bool):
+    """The local shard of DTensor ``x`` placed by the logical ``names``,
+    its gradient placed by :func:`grad_placements`."""
+    x = logical(x, *names)
+    return x.to_local(grad_placements=grad_placements(
+        x.placements, mesh, split_model))
+
+
+def _global_shape(local: torch.Tensor, pl, mesh) -> Tuple[int, ...]:
+    """The global shape of ``local`` placed ``pl``, split evenly."""
+    from torch.distributed.tensor import Shard
+    shape = list(local.shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            shape[p.dim] *= mesh.size(i)
+    return tuple(shape)
+
+
+def region(fn, args: Sequence, arg_names: Sequence, out_names: Sequence, *,
+           split_model: bool = True):
     """``fn`` over the local shards of ``args`` under the active mesh: the
-    counterpart of the reference's ``shard_map``, through ``local_map``.
-    Each DTensor arg is redistributed to the placements of its logical
-    names in ``arg_names`` (None for an int or a plain tensor), ``fn``
-    runs on the local tensors with explicit collectives, and its outputs
-    come back as DTensors placed by ``out_names``.  Outputs must split
-    evenly, as ``local_map`` infers their global shapes."""
-    from torch.distributed.tensor.experimental import local_map
+    counterpart of the reference's ``shard_map``.  Each DTensor arg is
+    redistributed to the placements of its logical names in ``arg_names``
+    (None for an int or a plain tensor), ``fn`` runs on the local tensors
+    with explicit collectives, and its outputs come back as DTensors placed
+    by ``out_names``, split evenly (their global shapes are inferred).  The
+    inputs' gradients are placed by :func:`grad_placements`:
+    ``split_model`` says whether the ``model`` ranks work differently on
+    them."""
     require_default_rules()
     mesh, rules = current_mesh(), current_rules()
-
-    def pl(names):
-        return tuple(placements(_resolve(names, mesh.mesh_dim_names, rules), mesh))
-
-    in_pl = tuple(None if n is None else pl(n) for n in arg_names)
-    out_pl = tuple(pl(n) for n in out_names)
-    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
-                     device_mesh=mesh, redistribute_inputs=True)(*args)
+    local = [_enter(a, n, mesh, split_model) if is_dtensor(a) else a
+             for a, n in zip(args, arg_names)]
+    outs = fn(*local)
+    single = isinstance(outs, torch.Tensor)
+    wrapped = []
+    for y, names in zip((outs,) if single else outs, out_names):
+        pl = placements(_resolve(names, mesh.mesh_dim_names, rules), mesh)
+        wrapped.append(wrap_local(y, mesh, pl, _global_shape(y, pl, mesh)))
+    return wrapped[0] if single else tuple(wrapped)
 
 
 def mixer_region(fn, p, x, *, cache=None, cache_axes=None, inplace=(),
-                 place=True, **kw):
+                 place=True, split_model=True, **kw):
     """A mixer under the active mesh: ``fn(p, x, cache=..., mesh=..., **kw)``
     over local shards.  ``x`` enters in the residual stream's layout and
     ``y`` leaves in it; each parameter enters gathered;
@@ -331,17 +531,22 @@ def mixer_region(fn, p, x, *, cache=None, cache_axes=None, inplace=(),
     in ``inplace`` (a decode step writes its slot there), else gathered,
     and each cache leaf ``fn`` returns is placed back by ``cache_axes``
     (left gathered when not ``place``: a prefill's K/V, which the model
-    pads before placing).  Cache lengths need not split evenly, so unlike
-    :func:`region` the outputs are wrapped with explicit global shapes."""
+    pads before placing).  ``split_model``: the ``model`` ranks do
+    different work (attention), so the gradients of ``x`` and ``p`` are
+    partial over ``model`` (:func:`grad_placements`).  Cache lengths need
+    not split evenly, so unlike :func:`region` the outputs are wrapped with
+    explicit global shapes."""
     require_default_rules()
     mesh = current_mesh()
-    p_loc = {k: to_local(v, *(None,) * v.dim()) for k, v in p.items()}
+    p_loc = {k: _enter(v, (None,) * v.dim(), mesh, split_model)
+             for k, v in p.items()}
     c_loc = None
     if cache is not None:
         c_loc = {k: to_local(v, *(cache_axes[k] if k in inplace
                                   else gathered(cache_axes[k])))
                  for k, v in cache.items()}
-    y, nc = fn(p_loc, to_local(x, *ACT), cache=c_loc, mesh=mesh, **kw)
+    y, nc = fn(p_loc, _enter(x, ACT, mesh, split_model), cache=c_loc,
+               mesh=mesh, **kw)
     B = x.shape[0]
     y = from_local(y, mesh, ACT, (B,) + tuple(y.shape[1:]))
     if nc is not None:

@@ -35,8 +35,12 @@ placed by the batch rule (``("batch", "seq", "dmodel")``), each block's
 mixer and FFN run as regions over local shards with explicit collectives,
 the caches leave placed by :func:`cache_axes` (K/V split over ``model``
 along ``kv_seq``), and the logits leave through ``full_tensor()``.  The
-batch must split evenly over the batch axes.  Training on a mesh is not
-ported yet (``loss_fn`` raises).
+batch must split evenly over the batch axes.  ``loss_fn`` runs there too:
+each region's inputs take their gradients' placements
+(:func:`~repro_torch.models.sharding.grad_placements`), its collectives
+carry their conjugate backward, and the cross entropy is
+vocabulary-parallel (:meth:`Model._nll_on_mesh`), so the parameters'
+gradients come out as DTensors and equal the no-mesh ones.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
@@ -62,8 +67,9 @@ from .layers import (KV_CACHE_AXES, MLA_CACHE_AXES, PDef, attn_apply,
 from .moe import moe_apply, moe_defs
 from .recurrent import (RNN_CACHE_AXES, mlstm_apply, mlstm_defs,
                         rglru_apply, rglru_defs, slstm_apply, slstm_defs)
-from .sharding import (ACT, all_reduce, axis_rank, axis_size, batch_rows,
-                       chunk_bounds, current_mesh, distribute, from_local,
+from .sharding import (ACT, all_reduce, axis_rank, axis_size,
+                       batch_axis_names, batch_rows, chunk_bounds,
+                       current_mesh, current_rules, distribute, from_local,
                        is_dtensor, logical, param_spec, region,
                        require_default_rules, require_group, sharding_rules,
                        to_local)
@@ -260,14 +266,16 @@ MIXER_APPLY = {
 def _gathered_region(fn, p, acts, out_names):
     """``fn(p, *acts)`` on this rank's batch rows with ``p`` gathered: the
     regions the reference constrains nothing in (encoder and cross
-    attention).  ``acts`` are batch-major DTensors placed by the batch
-    rule; ``out_names`` the outputs' logical axes."""
+    attention), computed alike on every ``model`` rank.  ``acts`` are
+    batch-major DTensors placed by the batch rule; ``out_names`` the
+    outputs' logical axes."""
     keys = sorted(p)
     na = len(acts)
     return region(lambda *a: fn(dict(zip(keys, a[na:])), *a[:na]),
                   tuple(acts) + tuple(p[k] for k in keys),
                   [("batch",) + (None,) * (t.dim() - 1) for t in acts]
-                  + [(None,) * p[k].dim() for k in keys], out_names)
+                  + [(None,) * p[k].dim() for k in keys], out_names,
+                  split_model=False)
 
 
 def _bidir_attn_apply(p, x, *, cfg, kv=None):
@@ -403,10 +411,16 @@ def set_remat_policy(name: str):
 
 def _remat_group(cfg: ModelConfig, pattern, group: "ParamTree", x, enc_out):
     """One layer group of a training forward under ``torch.utils.checkpoint``
-    with the active policy.  Returns (x, aux)."""
+    with the active policy.  Returns (x, aux).  The recomputation runs in
+    the backward pass, outside the caller's mesh context (and, on CUDA, in
+    autograd's own thread), so it enters the context the forward ran in:
+    every rank then issues the same collectives in the same order."""
+    mesh, rules = current_mesh(), current_rules()
+
     def run(x, enc_out):
-        x, _, aux = _group_step(cfg, pattern, group, x, None, mode="train",
-                                pos=None, enc_out=enc_out)
+        with sharding_rules(mesh, rules):
+            x, _, aux = _group_step(cfg, pattern, group, x, None,
+                                    mode="train", pos=None, enc_out=enc_out)
         return x, aux
 
     context_fn = _REMAT_POLICIES[_ACTIVE_REMAT_POLICY[0]]
@@ -669,23 +683,60 @@ class Model(ParamTree):
         MoE routers' load-balancing loss.  ``batch`` holds what
         :meth:`prefill` takes and ``labels`` (B, S); with ``remat`` each
         layer group is recomputed in the backward pass under the active
-        remat policy."""
+        remat policy.  On a mesh every rank passes the same whole batch and
+        keeps its own rows; the loss, a plain 0-d tensor, is the whole
+        batch's on every rank."""
         cfg = self.cfg
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "training on a mesh is not ported yet (ROADMAP item 15); "
-                "build the model without mesh= to train it")
-        enc_out = self._encode(batch) if cfg.encoder_layers else None
-        x = self._embed(batch)
-        x, _, aux = self._trunk(x, None, mode="train", pos=None,
-                                enc_out=enc_out, remat=remat)
-        logits = self._logits(x).float()
-        labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-        mask = (labels >= 0).float()
-        nll = torch.sum((lse - gold) * mask) / mask.sum().clamp_min(1.0)
-        return nll + aux_weight * aux
+        with self._rules():
+            enc_out = self._encode(batch) if cfg.encoder_layers else None
+            x = self._embed(batch)
+            x, _, aux = self._trunk(x, None, mode="train", pos=None,
+                                    enc_out=enc_out, remat=remat)
+            labels = torch.as_tensor(batch["labels"], device=self.device).long()
+            if self.mesh is not None:
+                return self._nll_on_mesh(x, labels) + aux_weight * aux
+            logits = self._logits(x).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+            mask = (labels >= 0).float()
+            nll = torch.sum((lse - gold) * mask) / mask.sum().clamp_min(1.0)
+            return nll + aux_weight * aux
+
+    def _nll_on_mesh(self, x, labels) -> torch.Tensor:
+        """The masked mean cross entropy, vocabulary-parallel: a region in
+        which each ``model`` rank holds its vocabulary columns of the logits
+        for its batch rows; the max (no gradient), the sum of exponentials
+        and the gold logit are reduced over ``model``, the nll sum and the
+        mask count over the batch axes."""
+        mesh, V = self.mesh, self.cfg.vocab_size
+        lo, hi = chunk_bounds(V, axis_size(mesh, "model"),
+                              axis_rank(mesh, "model"))
+        if hi == lo:
+            raise ValueError(f"a vocabulary of {V} leaves a model rank none")
+        b0, b1 = batch_rows(mesh, labels.shape[0])
+        lab = labels[b0:b1]
+
+        def body(x, w):
+            logits = (x @ w.to(x.dtype)).float()          # (b, S, hi - lo)
+            with torch.no_grad():
+                m = all_reduce(logits.amax(dim=-1), mesh, "model",
+                               op=dist.ReduceOp.MAX)
+            sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+            lse = m + torch.log(all_reduce(sumexp, mesh, "model"))
+            gold = logits.gather(-1, (lab - lo).clamp(0, hi - lo - 1)
+                                 [..., None])[..., 0]
+            inside = (lab >= lo) & (lab < hi)
+            gold = all_reduce(torch.where(inside, gold, 0.0), mesh, "model")
+            mask = (lab >= 0).float()
+            nll = torch.sum((lse - gold) * mask).reshape(1)
+            count = mask.sum().reshape(1)
+            for a in batch_axis_names(mesh):
+                nll = all_reduce(nll, mesh, a)
+                count = all_reduce(count, mesh, a)
+            return (nll / count.clamp_min(1.0)).reshape(())
+
+        return region(body, (x, self.lm_head), (ACT, (None, "vocab")),
+                      ((),)).to_local()
 
     def forward(self, batch):
         """The training loss without remat, :meth:`loss_fn`: what

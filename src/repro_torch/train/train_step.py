@@ -14,6 +14,15 @@ Microbatch gradients accumulate in the parameters' ``.grad`` through
 ``backward()`` of ``loss / microbatches``, in the parameters' dtype
 (float32 for float32 parameters, bf16 for bf16 ones, as the reference's
 accumulator); no second gradient tree is held.
+
+On a mesh (a model built with ``mesh=``) every rank passes the same whole
+batch.  Microbatch *i* is the batch's global chunk *i*, as the reference
+splits it, and the model keeps this rank's rows of it, so each
+microbatch's masked mean is the whole chunk's.  The gradients accumulate
+as DTensors and are placed like their parameters before the update.
+DP-SGD on a mesh is not ported (ROADMAP item 15): ``torch.func.vmap`` over
+regions that hold collectives is the next slice, so ``dp=`` with a mesh
+model raises.
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ from repro_torch.models.layers import tree_leaves, tree_map, tree_paths
 from repro_torch.models.transformer import Model
 
 from .dp import DPSGDConfig, add_dp_noise, per_example_clipped_grad
-from .optimizer import AdamWConfig, apply_updates, init_opt_state
+from .optimizer import (AdamWConfig, apply_updates, init_opt_state,
+                        placed_like)
 
 TrainState = Dict[str, Any]   # {'params', 'opt': {'m','v','count'}, 'rng'}
 
@@ -82,7 +92,13 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     """Build ``train_step(state, batch) -> (state, metrics)``; metrics are
     ``loss`` (the mean of the microbatch losses), ``grad_norm`` and ``lr``
     as 0-d tensors.  Switches the model's gradients on.  The DP path takes
-    its per-example gradients without remat (:mod:`repro_torch.train.dp`)."""
+    its per-example gradients without remat (:mod:`repro_torch.train.dp`);
+    it raises on a mesh model."""
+    if dp is not None and model.mesh is not None:
+        raise NotImplementedError(
+            "DP-SGD on a mesh is not ported yet (ROADMAP item 15): "
+            "torch.func.vmap over the mesh regions' collectives; train it "
+            "without mesh= or without dp=")
     model.requires_grad_(True)
     dp_loss = functional_loss(model)
 
@@ -107,6 +123,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                 l = model.loss_fn(mb, remat=remat)
                 (l / microbatches).backward()
             loss = loss + l.detach() / microbatches
+        for p in leaves:
+            p.grad = placed_like(p.grad, p)
         grads = tree_map(lambda p: p.grad, params)
         rng = state["rng"]
         if dp is not None:

@@ -1047,3 +1047,44 @@ def test_lm_train_loop_resume_on_card_bit_for_bit(cuda, tmp_path):
     _, rest = train_loop(cfg, steps=45, ckpt_dir=str(tmp_path / "b"),
                          resume=True, **run)
     assert first + rest == whole
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v2-236b",
+                                  "xlstm-350m"])
+def test_lm_mesh_train_step_one_rank_nccl_matches_cpu(cuda, arch, tmp_path):
+    """One train step (2 microbatches, "dots" remat) on a (1, 1) mesh over a
+    one-rank NCCL group on the card against the CPU's no-mesh step of the
+    same weights: the loss, every updated parameter and every moment (the
+    mesh's leaves DTensors, gathered)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import load_all
+    from repro_torch.configs.shapes import reduced_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.sharding import is_dtensor
+    load_all()
+    cpu = Model.init(reduced_config(arch), torch.Generator().manual_seed(0),
+                     device="cpu")
+    batch = _lm_batch(cpu, 4, 16, seed=2)
+    batch["labels"] = torch.randint(0, cpu.cfg.vocab_size, (4, 16),
+                                    generator=torch.Generator().manual_seed(3))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        card = Model.from_params(cpu.cfg, cpu.tree(), mesh=make_host_mesh("cuda"))
+        got, gl = _train_step_on(card, {k: v.to(cuda) for k, v in batch.items()})
+        want, wl = _train_step_on(cpu, batch)
+        assert abs(gl - wl) <= LM_TRAIN_REL * abs(wl)
+        for part in ("params", "opt"):
+            for g, w in zip(tree_leaves(got[part]), tree_leaves(want[part]),
+                            strict=True):
+                if g.dtype.is_floating_point:
+                    assert is_dtensor(g) and g.device.type == "cuda"
+                    assert _rel(g.full_tensor().cpu(), w.detach()) \
+                        < LM_TRAIN_REL, part
+    finally:
+        dist.destroy_process_group()
