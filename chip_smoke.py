@@ -178,7 +178,24 @@ Phases, in order; any failure exits non-zero:
    steps (seconds, peak memory, finite losses) and a sharded save and
    restore, bit-equal. tools/lm_mesh.py --train runs the four-card runs.
    No kernel of the port runs here.
-31. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
+31. [lm-mesh-dp] DP-SGD on a mesh (repro_torch.train.dp) on min(cards, 4)
+   NCCL ranks ((1, 1) on one card; (1, 4) and (2, 2) on four): one DP-SGD
+   step of Qwen3-4B at published width (4 of 36 layers, float32, TF32 off)
+   against the one-card DP step from the same generator state (loss and
+   every parameter and moment leaf within rel 1e-5), reduced DeepSeek-V2's
+   clipped mean against the one card's (capacity factor 100) and, where
+   the model axis is larger than 1, with capacity drops against each
+   example mesh clipping the batch alone; Qwen3-4B float32 trained by
+   train_loop(dp=DPSGDConfig(), mesh=(1, N)) at full depth on four cards
+   (8 layers on one): step seconds, peak GiB per rank, the accountant's
+   report; the fake step's FLOPs and collective counts equal the real
+   step's.  No kernel of the port runs here.
+32. [dryrun] the dry run on fake tensors over a fake 256-rank process
+   group (repro_torch.launch.dryrun) for qwen3-4b train_4k and
+   deepseek-v2-236b decode_32k, in child processes on the host CPU started
+   with the smoke: both status ok, their analyze rows (the H100 SXM
+   datasheet row; counts, not measured times), the seconds the wait adds.
+33. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
 
@@ -4134,6 +4151,419 @@ def phase_lm_mesh_train(card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# [lm-mesh-dp]: DP-SGD on a mesh.  Each (pod, data) coordinate clips its own
+# examples one at a time on its model ranks (repro_torch.train.dp), the
+# clipped sums are added over the batch axes, and the noise is drawn at each
+# leaf's global shape, so a mesh step equals the one-card DP step from the
+# same generator state.  min(cards, 4) NCCL ranks, spawned as
+# [lm-mesh-train] spawns them: on one card the mesh is (1, 1).
+LM_DP_B, LM_DP_S = 4, 64
+LM_DP_CLIP = 1e-2          # below the examples' norms: every one is clipped
+LM_DP_REL = 1e-5           # loss and every leaf (of its max), mesh vs one card
+LM_DP_NO_DROPS, LM_DP_DROPS = 100.0, 1.0   # reduced DeepSeek-V2's capacity
+LM_DP_FULL_B, LM_DP_FULL_S, LM_DP_FULL_STEPS = 4, 128, 2
+LM_DP_ONE_CARD_LAYERS = 8  # Qwen3-4B's depth cut for one card's DP run
+LM_DP_REAL_STEP = (4, 32)  # B, S of the fake-against-real train step
+
+
+def lm_dp_batch(cfg, B, S, seed=SEED):
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                      device="cuda"),
+            "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                      device="cuda")}
+
+
+def lm_dp_reduced(arch, cf=None):
+    """``arch``'s reduced config (float32), at capacity factor ``cf``."""
+    import dataclasses
+    from repro_torch.configs import load_all, shapes
+    load_all()
+    cfg = shapes.reduced_config(arch)
+    if cf is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def _aux_free(model):
+    from repro_torch.models.layers import tree_paths
+    return lambda p, b: torch.func.functional_call(
+        model, tree_paths(p, "."), (b,), {"aux_weight": 0.0})
+
+
+def _tree_errors(got, want, mesh):
+    """The worst rel error (of each leaf's max) of a DTensor tree against a
+    plain tree on this rank's card, each rank comparing its shards; max over
+    ranks (a collective).  Returns (error, leaf)."""
+    import torch.distributed as dist
+    from repro_torch.models.layers import tree_paths
+    from repro_torch.models.sharding import place
+    full = tree_paths(want)
+    worst, name = 0.0, ""
+    for k, g in tree_paths(got).items():
+        w = full[k].detach()
+        ref = place(w, g.device_mesh, g.placements).to_local()
+        err = float((g.detach().to_local().float() - ref.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-30)) if ref.numel() else 0.0
+        if err > worst:
+            worst, name = err, k
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, (worst, name))
+    return max(out)
+
+
+def _lm_dp_step_parity(mesh):
+    """Qwen3-4B at published width, LM_MESH_GQA_LAYERS deep, float32: one
+    DP-SGD step (2 microbatches, clip LM_DP_CLIP, noise 1) on ``mesh``
+    against the same step on this rank's card without a mesh, from one
+    generator state."""
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, DPSGDConfig, make_train_step
+    from repro_torch.train.train_step import init_train_state
+    cfg = lm_mesh_config(LM_MESH_GQA_LAYERS, "float32", arch=LM_MESH_GQA)
+    batch = lm_dp_batch(cfg, LM_DP_B, LM_DP_S)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=20, eps=1e-4)
+    dp = DPSGDConfig(clip_norm=LM_DP_CLIP)
+    free_device_memory()
+    plain = Model.init(cfg, cuda_gen(), device="cuda")
+    want, met = make_train_step(plain, oc, microbatches=2, dp=dp)(
+        init_train_state(plain, oc), batch)
+    want_loss = float(met["loss"])
+    want = {"params": want["params"], "m": want["opt"]["m"],
+            "v": want["opt"]["v"]}
+    del plain
+    free_device_memory()
+    model = Model.init(cfg, cuda_gen(), mesh=mesh)
+    step = make_train_step(model, oc, microbatches=2, dp=dp)
+    state, losses, secs = _timed_steps(step, init_train_state(model, oc),
+                                       batch, 1)
+    err, leaf = _tree_errors({"params": state["params"],
+                              "m": state["opt"]["m"], "v": state["opt"]["v"]},
+                             want, mesh)
+    out = {"n_params": sum(p.numel() for p in model.parameters()),
+           "loss": losses[0], "plain_loss": want_loss, "s": secs[0],
+           "loss_rel": abs(losses[0] - want_loss) / abs(want_loss),
+           "leaf_rel": err, "leaf": leaf}
+    del model, state, step, want
+    free_device_memory()
+    return out
+
+
+def _lm_dp_clip_parity(mesh, cf, against="card"):
+    """Reduced DeepSeek-V2 (float32, capacity factor ``cf``): the mesh's
+    clipped mean (auxiliary loss off) and its dropped pairs, against this
+    rank's one-card result (``against`` "card"), or against each (pod,
+    data) coordinate's example mesh clipping the whole batch on its own
+    ("example_mesh": no batch axis, what the mesh run must add up to when
+    each example is routed alone), or against nothing (None)."""
+    from repro_torch.models import Model, moe
+    from repro_torch.train.dp import (_on_example_mesh, example_mesh,
+                                      per_example_clipped_grad)
+    from repro_torch.models.layers import tree_map
+    cfg = lm_dp_reduced(LM_MESH_ARCH, cf)
+    batch = lm_dp_batch(cfg, LM_DP_B, LM_DP_S)
+    model = Model.init(cfg, cuda_gen(), mesh=mesh)
+    moe.reset_moe_stats()
+    got = per_example_clipped_grad(_aux_free(model), model.tree(), batch,
+                                   LM_DP_CLIP)
+    dropped = moe.moe_stats()["dropped"]
+    if against is None:
+        return {"dropped": int(dropped)}
+    if against == "example_mesh":
+        sub = example_mesh(mesh)
+        ex = tree_map(lambda p: _on_example_mesh(p, sub).detach(), model.tree())
+        alone = per_example_clipped_grad(_aux_free(model), ex, batch,
+                                         LM_DP_CLIP)
+        want = tree_map(lambda g: g.full_tensor(), alone)
+    else:
+        plain = Model.init(cfg, cuda_gen(), device="cuda")
+        want = per_example_clipped_grad(_aux_free(plain), plain.tree(),
+                                        batch, LM_DP_CLIP)
+    err, leaf = _tree_errors(got, want, mesh)
+    return {"leaf_rel": err, "leaf": leaf, "dropped": int(dropped)}
+
+
+def _lm_dp_full(world, mesh):
+    """Qwen3-4B at published width, float32 (full depth on four cards,
+    LM_DP_ONE_CARD_LAYERS on one), trained by train_loop(dp=DPSGDConfig(),
+    mesh=) for LM_DP_FULL_STEPS steps with an accountant, then one more
+    DP step timed."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train import DPSGDConfig
+    from repro_torch.train.dp import DPSGDAccountant
+    layers = 36 if world >= 4 else LM_DP_ONE_CARD_LAYERS
+    cfg = lm_mesh_config(layers, "float32", arch=LM_MESH_GQA)
+    dp = DPSGDConfig()
+    acct = DPSGDAccountant(dp)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses = train_loop(
+        cfg, steps=LM_DP_FULL_STEPS, batch_size=LM_DP_FULL_B,
+        seq_len=LM_DP_FULL_S, ckpt_dir=None, resume=False, dp=dp,
+        microbatches=2, ckpt_every=0, mesh=mesh, log_every=1, accountant=acct)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    del state
+    free_device_memory()
+    return {"layers": layers, "n_params": n_params, "losses": losses,
+            "loop_s": loop_s, "step_s": loop_s / LM_DP_FULL_STEPS,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "report": acct.report(),
+            "finite": all(math.isfinite(v) for v in losses)}
+
+
+def _lm_dp_rank(rank, world, store, job, out_path):
+    """One NCCL rank of [lm-mesh-dp] (spawned): the parity runs on each
+    mesh, the full-width run, and the counters of a real train step; rank 0
+    writes every rank's numbers to ``out_path``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import count_real_train_step
+    from repro_torch.launch.mesh import make_host_mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    report = {"world": world, "meshes": {}}
+    try:
+        for shape in lm_mesh_meshes(world):
+            mesh = make_host_mesh("cuda", shape)
+            t0 = time.perf_counter()
+            res = {"qwen_step": _lm_dp_step_parity(mesh),
+                   "moe_clip": _lm_dp_clip_parity(mesh, LM_DP_NO_DROPS)}
+            if mesh.size(1) > 1:     # an expert axis: capacity drops
+                res["moe_drops"] = _lm_dp_clip_parity(
+                    mesh, LM_DP_DROPS,
+                    "example_mesh" if mesh.size(0) > 1 else None)
+            res["s"] = time.perf_counter() - t0
+            ranks = [None] * world
+            dist.all_gather_object(ranks, res)
+            report["meshes"][str(shape)] = ranks
+        mesh = make_host_mesh("cuda", (1, world))
+        res = _lm_dp_full(world, mesh)
+        ranks = [None] * world
+        dist.all_gather_object(ranks, res)
+        report["full"] = ranks
+        report["real_counts"] = count_real_train_step(
+            lm_dp_reduced(LM_MESH_GQA), *LM_DP_REAL_STEP, mesh,
+            microbatches=2)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+_FAKE_COUNTS = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.configs import load_all, shapes
+from repro_torch.launch.dryrun import count_step, start_fake_group
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.sharding import DEFAULT_RULES
+load_all()
+start_fake_group({world})
+mesh = make_mesh((1, {world}), ("data", "model"), "cuda")
+rec = count_step(shapes.reduced_config({arch!r}), "train", {B}, {S}, mesh,
+                 DEFAULT_RULES, microbatches=2, device="cuda")
+print(json.dumps(rec["op_stats"]))
+"""
+
+
+def lm_dp_fake_counts(world):
+    """The fake step's counters on a fake (1, world) mesh, in a child
+    process (its own fake process group; fake CUDA tensors)."""
+    code = _FAKE_COUNTS.format(
+        src=os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"),
+        world=world, arch=LM_MESH_GQA, B=LM_DP_REAL_STEP[0],
+        S=LM_DP_REAL_STEP[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"[lm-mesh-dp] the fake count failed: "
+                             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def lm_dp_print(report, fake, gates=True):
+    """Print a report of ``_lm_dp_rank`` and hold it to the gates."""
+    world = report["world"]
+    for shape, ranks in report["meshes"].items():
+        r0 = ranks[0]
+        q = r0["qwen_step"]
+        tag = f"[lm-mesh-dp] world {world} mesh {shape}"
+        print(f"{tag} {LM_MESH_GQA} {LM_MESH_GQA_LAYERS} layers "
+              f"({q['n_params'] / 1e9:.3f}B parameters, float32, TF32 off, "
+              f"{LM_DP_B} x {LM_DP_S} tokens in 2 microbatches, clip "
+              f"{LM_DP_CLIP}, noise 1): one DP-SGD step {q['s']:.3f} s; loss "
+              f"{q['loss']!r} against the one-card step's {q['plain_loss']!r}, "
+              f"rel {q['loss_rel']:.3e}; worst parameter/moment leaf rel "
+              f"{q['leaf_rel']:.3e} ({q['leaf']}; bound {LM_DP_REL})")
+        m = r0["moe_clip"]
+        print(f"{tag} reduced {LM_MESH_ARCH} (capacity factor "
+              f"{LM_DP_NO_DROPS}, auxiliary loss off): clipped mean against "
+              f"the one card's, worst leaf rel {m['leaf_rel']:.3e} "
+              f"({m['leaf']}); dropped pairs "
+              f"{sum(r['moe_clip']['dropped'] for r in ranks)}")
+        if gates:
+            assert q["loss_rel"] < LM_DP_REL and q["leaf_rel"] < LM_DP_REL, q
+            assert m["leaf_rel"] < LM_DP_REL, m
+        if "moe_drops" in r0:
+            d = r0["moe_drops"]
+            drops = sum(r["moe_drops"]["dropped"] for r in ranks)
+            line = (f"{tag} reduced {LM_MESH_ARCH} (capacity factor "
+                    f"{LM_DP_DROPS}): {drops} dropped pairs")
+            if "leaf_rel" in d:
+                line += (f"; the clipped mean against each example mesh "
+                         f"clipping the whole batch alone, worst leaf rel "
+                         f"{d['leaf_rel']:.3e} ({d['leaf']})")
+            print(line)
+            if gates:
+                assert drops > 0 and d.get("leaf_rel", 0.0) < LM_DP_REL, d
+        else:
+            print(f"{tag}: no expert axis (model 1), the MoE runs its dense "
+                  f"path; the capacity-drop case runs on more cards")
+    full = report["full"]
+    f0 = full[0]
+    print(f"[lm-mesh-dp] world {world} mesh (1, {world}) {LM_MESH_GQA} at "
+          f"published width, {f0['layers']} of 36 layers "
+          f"({f0['n_params'] / 1e9:.3f}B parameters, float32): "
+          f"train_loop(dp=DPSGDConfig(), mesh=) {LM_DP_FULL_STEPS} steps of "
+          f"{LM_DP_FULL_B} x {LM_DP_FULL_S} tokens in 2 microbatches, "
+          f"losses {f0['losses']}; {f0['loop_s']:.2f} s, "
+          f"{f0['step_s']:.2f} s a step; peak GiB per rank "
+          f"{[round(r['peak_gib'], 3) for r in full]}; accountant "
+          f"{f0['report']}")
+    real = report["real_counts"]
+    print(f"[lm-mesh-dp] reduced {LM_MESH_GQA} train step "
+          f"({LM_DP_REAL_STEP[0]} x {LM_DP_REAL_STEP[1]}, 2 microbatches, "
+          f"remat) on (1, {world}): rank 0's matrix-product FLOPs real "
+          f"{real['flops']:.0f}, fake {fake['flops']:.0f}; collectives real "
+          f"{real['collective_counts']}, fake {fake['collective_counts']}")
+    if gates:
+        assert all(r["finite"] for r in full), full
+        assert f0["report"]["steps"] == LM_DP_FULL_STEPS, f0["report"]
+        assert real["flops"] == fake["flops"] > 0, (real, fake)
+        assert real["collective_counts"] == fake["collective_counts"], \
+            (real, fake)
+
+
+def phase_lm_mesh_dp(card, world=None):
+    """[lm-mesh-dp] DP-SGD on a mesh on min(cards, 4) NCCL ranks.
+
+    On each mesh of lm_mesh_meshes (on four cards (1, 4) and (2, 2); on one
+    (1, 1)): (a) Qwen3-4B at published width, 4 of 36 layers, float32
+    compute with TF32 off: one DP-SGD step (clip 1e-2, noise 1) against
+    the one-card DP step from the same generator state; gates: the loss
+    and every parameter and moment leaf within rel 1e-5 (of its max).  (b)
+    Reduced DeepSeek-V2 at capacity factor 100 (nothing drops), auxiliary
+    loss off: the clipped mean against the one card's, rel 1e-5.  (c) Where
+    the model axis is larger than 1, reduced DeepSeek-V2 at capacity
+    factor 1.0: dropped pairs > 0 and the clipped mean equal (rel 1e-5) to
+    each example mesh clipping the whole batch alone (the one-card MoE
+    computes every expert, so it has no drops to compare).  Then Qwen3-4B
+    at published width, float32, full depth on four cards (8 of 36 layers
+    on one), trained by train_loop(dp=DPSGDConfig(), mesh=(1, N)): step
+    seconds, peak GiB per rank, the accountant's report (its steps the
+    steps run).  Last, reduced Qwen3-4B's train step counted by OpStats on
+    the real (1, N) mesh and on a fake one in a child process: the
+    matrix-product FLOPs and the collectives of each kind equal.  No kernel
+    of the port runs here."""
+    t_phase = time.perf_counter()
+    world = world or min(torch.cuda.device_count(), 4)
+    free_device_memory()
+    report = lm_mesh_spawn({"build": "build"}, world, "dp",
+                           target=_lm_dp_rank, timeout=1800)
+    fake = lm_dp_fake_counts(world)
+    lm_dp_print(report, fake)
+    secs = time.perf_counter() - t_phase
+    print(f"[lm-mesh-dp] {secs:.1f} s in all")
+    return secs
+
+
+# ---------------------------------------------------------------------------
+# [dryrun]: the port's dry run on fake tensors over a fake process group of
+# 256 ranks (repro_torch.launch.dryrun), two single-pod cells in child
+# processes on the host CPU (no card: CUDA_VISIBLE_DEVICES is empty and the
+# fake tensors sit on the CPU device), started with the smoke and read at its
+# end; their records scored by repro_torch.roofline.analyze with the H100 SXM
+# datasheet row (counts, not measured times).
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
+DRYRUN_DIR = os.path.join("build", "dryrun_torch")
+
+
+def dryrun_start():
+    """Start one child per DRYRUN_CELLS cell (each killed at exit if still
+    running); returns (procs, t0)."""
+    import atexit
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(
+                   __file__)), "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        path = os.path.join(DRYRUN_DIR, f"{arch}__{shape}__single.json")
+        if os.path.exists(path):
+            os.remove(path)
+        log = open(os.path.join(DRYRUN_DIR, f"{arch}__{shape}.log"), "w")
+        procs.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", "single", "--device", "cpu",
+             "--out", DRYRUN_DIR], env=env, stdout=log,
+            stderr=subprocess.STDOUT)))
+    atexit.register(lambda: [p.kill() for *_, p in procs if p.poll() is None])
+    return procs, time.perf_counter()
+
+
+def phase_dryrun(started, timeout=900):
+    """[dryrun] wait for the cells, gate each at status ok, print their
+    records' analyze rows and the seconds the wait added."""
+    from repro_torch.roofline.analyze import analyze_cell, markdown_table
+    procs, t_start = started
+    t0 = time.perf_counter()
+    cells = []
+    for arch, shape, log, p in procs:
+        try:
+            p.wait(timeout=max(timeout - (time.perf_counter() - t_start), 1))
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        with open(os.path.join(DRYRUN_DIR,
+                               f"{arch}__{shape}__single.json")) as f:
+            rec = json.load(f)
+        if rec["status"] != "ok":
+            raise AssertionError(f"[dryrun] {arch} {shape}: {rec.get('error')}")
+        ma = rec["memory_analysis"]
+        print(f"[dryrun] {arch} {shape} single (256 fake ranks, fake tensors on "
+              f"the {rec['fake_device']} device): ok, traced in "
+              f"{rec['trace_s']} s; per device: matrix-product FLOPs "
+              f"{rec['op_stats']['flops']:.4e}, bytes "
+              f"{rec['op_stats']['bytes']:.4e}, collectives "
+              f"{rec['collective_counts']}, argument/output/temp GiB "
+              f"{ma['argument_size_in_bytes'] / 2**30:.3f}/"
+              f"{ma['output_size_in_bytes'] / 2**30:.3f}/"
+              f"{ma['temp_size_in_bytes'] / 2**30:.3f}")
+        cells.append(analyze_cell(rec))
+    print("[dryrun] roofline of the counts, scored with the NVIDIA H100 SXM "
+          "datasheet row (dense bf16 989.5 TFLOP/s, HBM 3.35 TB/s, NVLink "
+          "900 GB/s; not times measured on a card):")
+    print(markdown_table(cells))
+    secs = time.perf_counter() - t0
+    print(f"[dryrun] {secs:.1f} s added at the end (the cells ran beside the "
+          f"other phases from {time.perf_counter() - t_start:.1f} s before)")
+    return secs
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4153,6 +4583,7 @@ def main() -> int:
     os.environ.pop("REPRO_KERNEL_COMPUTE_DTYPES", None)
     fresh_tuning("main")
     t_start = time.perf_counter()
+    dryrun = dryrun_start()      # [dryrun]'s cells run beside the phases
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     # The planners' peak RSS, each in a child started while this process is
@@ -4220,6 +4651,8 @@ def main() -> int:
     free_device_memory()
     phase_lm_mesh(card)
     phase_lm_mesh_train(card)
+    phase_lm_mesh_dp(card)
+    phase_dryrun(dryrun)
     counts = (adult_counts, synth_counts) + rplus_counts + (
         tune_counts, bf16_counts) + secure_counts + release_counts \
         + slice_counts + (serve_counts,) + baseline_counts + (lm_train_counts,)

@@ -15,9 +15,9 @@ every rank calls it alike): the seeded weights are drawn whole and each
 rank keeps its shards, every rank runs the same token stream, the model
 runs its step in the mesh's sharding context, and rank 0 logs and commits
 the checkpoints, which hold the full global arrays.  Four cards train
-Qwen3-4B so (``tools/lm_mesh.py --train``).  DP-SGD on a mesh is not
-ported (ROADMAP item 15) and raises.  The command line trains on one
-device.  Three behaviours differ from the reference on purpose:
+Qwen3-4B so (``tools/lm_mesh.py --train``), with DP-SGD too
+(``dp=``; the accountant is charged once a step on every rank, rank 0
+logs).  The command line trains on one device.  Three behaviours differ from the reference on purpose:
 
 * ``--reduced`` can be switched off (``--no-reduced``): the reference
   declares it ``store_true`` with ``default=True``, so its full-config
@@ -87,16 +87,15 @@ def _batch(cfg, b, it: int, batch_size: int, seq_len: int, dev):
 def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                ckpt_dir: str | None, resume: bool, dp: DPSGDConfig | None,
                microbatches: int, ckpt_every: int, mesh=None,
-               log_every: int = 10, seed: int = 0, device=None):
+               log_every: int = 10, seed: int = 0, device=None,
+               accountant: DPSGDAccountant | None = None):
     """Train ``cfg`` from seeded weights for ``steps`` steps (from the
     latest checkpoint with ``resume``); returns (state, this run's losses).
     On ``mesh`` (every rank calling alike) the state's leaves are DTensors
     and the losses are the whole batch's on every rank.  ``ckpt_dir=None``
-    trains without checkpoints (a full-width Qwen3-4B state is 53 GB)."""
-    if dp is not None and mesh is not None:
-        raise NotImplementedError(
-            "DP-SGD on a mesh is not ported yet (ROADMAP item 15); pass "
-            "dp=None or mesh=None")
+    trains without checkpoints (a full-width Qwen3-4B state is 53 GB).
+    With ``dp`` the accountant (``accountant``, else a new one) is charged
+    before each step, so a step its budget refuses raises before it runs."""
     dev = resolve_device(device if mesh is None else mesh.device_type)
     model = Model.init(cfg, torch.Generator(dev).manual_seed(seed),
                        device=dev, mesh=mesh)
@@ -113,7 +112,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         start = manifest["step"]
         if lead:
             print(f"[train] resumed from step {start}")
-    acct = DPSGDAccountant(dp) if dp else None
+    acct = (accountant or DPSGDAccountant(dp)) if dp else None
     gen = synthetic_lm_batches(cfg.vocab_size, batch_size, seq_len, seed=seed)
     for _ in range(start):           # the batches the earlier steps consumed
         next(gen)
@@ -121,13 +120,13 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     losses = []
     for it in range(start, steps):
         batch = _batch(cfg, next(gen), it, batch_size, seq_len, dev)
+        if acct:
+            acct.charge_step()
         t0 = time.time()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
         if lead:
             wd.observe(time.time() - t0)
-        if acct:
-            acct.charge_step()
         losses.append(loss)
         if lead and it % log_every == 0:
             msg = f"[train] step {it} loss {loss:.4f}"

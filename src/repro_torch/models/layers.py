@@ -10,15 +10,16 @@ reference's ``preferred_element_type``), norms and RoPE angles in float32.
 Attention stays plain torch ops, as the reference's is jnp, not Pallas.
 
 On a mesh (DTensor inputs) the attention blocks run as regions over local
-shards with explicit collectives over ``model``, where the reference puts
-its logical-axis constraints: 'seq' mode splits the query rows
+shards with explicit collectives over the mesh axes the active rules give
+(``model`` under the default rules), where the reference puts its
+logical-axis constraints: 'seq' mode splits the query rows
 (``seq_shard``) and gathers the output rows; 'heads' mode
 (:func:`set_attn_sharding`) pads the GQA groups to G' (:func:`_heads_padding`),
 repeats K/V, splits the padded heads (``heads_shard``) and adds the
 partial outputs; a decode step writes its slot on the rank that holds it
-and runs split-K over the cache length (``kv_seq``), its softmax max and
-sums taken across ranks.  :func:`swiglu_apply` shards d_ff over ``model``
-(``dff``).  In training the 'seq' output gather hands each rank its rows'
+and runs split-K over the cache length (``kv_seq``, over (``data``,
+``model``) under the dry run's ``long_500k`` rules), its softmax max and
+sums taken across ranks.  :func:`swiglu_apply` shards d_ff over ``dff``.  In training the 'seq' output gather hands each rank its rows'
 gradient, the 'heads' and SwiGLU all-reduces pass theirs through, and the
 inputs' gradients leave the regions partial over ``model``; the decode
 paths are not trained.  Two behaviours differ from the reference on purpose:
@@ -44,9 +45,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 
 from .config import torch_dtype
-from .sharding import (ACT, all_gather_dim, all_reduce, axis_rank, axis_size,
-                       chunk_bounds, current_mesh, is_dtensor, mixer_region,
-                       region)
+from .sharding import (ACT, all_gather_dim, all_reduce, axes_bounds, axis_rank,
+                       axis_size, current_mesh, is_dtensor, mixer_region,
+                       region, rule_axes)
 
 NEG_POS = -(10 ** 9)   # position of a KV pad slot: before every query
 
@@ -346,8 +347,8 @@ def attn_apply(p, x, *, cfg, mode: str, cache=None, pos=None,
         inplace = ("k", "v") if mode == "decode" else ()
         return mixer_region(attn_apply, p, x, cache=cache,
                             cache_axes=KV_CACHE_AXES, inplace=inplace,
-                            place=False, cfg=cfg, mode=mode, pos=pos,
-                            local=local,
+                            place=False, split=_attn_split(cfg, mode, local),
+                            cfg=cfg, mode=mode, pos=pos, local=local,
                             kv_len=None if cache is None
                             else cache["k"].shape[1])
     B, S, D = x.shape
@@ -427,7 +428,8 @@ def mla_apply(p, x, *, cfg, mode: str, cache=None, pos=None, mesh=None,
         inplace = ("c_kv",) if mode == "decode" else ()
         return mixer_region(mla_apply, p, x, cache=cache,
                             cache_axes=MLA_CACHE_AXES, inplace=inplace,
-                            place=False, cfg=cfg, mode=mode, pos=pos,
+                            place=False, split=_attn_split(cfg, mode, True),
+                            cfg=cfg, mode=mode, pos=pos,
                             kv_len=None if cache is None
                             else cache["c_kv"].shape[1])
     B, S, D = x.shape
@@ -458,7 +460,7 @@ def mla_apply(p, x, *, cfg, mode: str, cache=None, pos=None, mesh=None,
         else:     # split-K: this rank's slots, the softmax across ranks
             pr = _split_softmax(s, mesh)
             o_lat = all_reduce(torch.einsum("bhst,btr->bshr", pr.to(cdt),
-                                            c_comp), mesh, "model")
+                                            c_comp), mesh, rule_axes("kv_seq"))
         o = torch.einsum("bshr,rhd->bshd", o_lat, wuv)
         new_cache = {"c_kv": c_cache}
     else:
@@ -495,9 +497,9 @@ SWIGLU_REGION_AXES = {"wg": (None, "dff"), "wu": (None, "dff"),
 
 def swiglu_apply(p, x, *, cfg, mesh=None):
     """SwiGLU; on DTensors a region (``local_map``) in which the hidden
-    activation shards d_ff over ``model`` (Megatron tensor parallelism, the
-    reference's ``logical(g * u, "batch", None, "dff")``) and the output's
-    partial sums are added over ``model``."""
+    activation shards d_ff over the ``dff`` rule's axes (``model``:
+    Megatron tensor parallelism, the reference's ``logical(g * u, "batch",
+    None, "dff")``) and the output's partial sums are added over them."""
     if is_dtensor(x):
         mesh = current_mesh()
         return region(lambda x, wg, wu, wo: swiglu_apply(
@@ -506,14 +508,14 @@ def swiglu_apply(p, x, *, cfg, mesh=None):
                       (x, p["wg"], p["wu"], p["wo"]),
                       (ACT,) + tuple(SWIGLU_REGION_AXES[k]
                                      for k in ("wg", "wu", "wo")),
-                      (ACT,))
+                      (ACT,), split=rule_axes("dff"))
     cdt = torch_dtype(cfg.compute_dtype)
     xq = x.to(cdt)
     g = F.silu(xq @ p["wg"].to(cdt))
     u = xq @ p["wu"].to(cdt)
     y = (g * u) @ p["wo"].to(cdt)
     if mesh is not None:
-        y = all_reduce(y, mesh, "model")
+        y = all_reduce(y, mesh, rule_axes("dff", mesh))
     return y.to(x.dtype)
 
 
@@ -524,14 +526,13 @@ def swiglu_apply(p, x, *, cfg, mesh=None):
 def _write_slot_split(cache: torch.Tensor, new: torch.Tensor, pos: int,
                       kv_len: int, mesh) -> int:
     """Write the one-step ``new`` into global slot ``pos`` of a cache whose
-    ``kv_len`` slots are split over ``model`` (``cache`` is this rank's
-    chunk, written in place only on the rank that holds ``pos``).  Returns
-    the chunk's first global slot."""
+    ``kv_len`` slots are split over the ``kv_seq`` rule's axes (``cache``
+    is this rank's chunk, written in place only on the rank that holds
+    ``pos``).  Returns the chunk's first global slot."""
     if not 0 <= pos < kv_len:
         raise IndexError(f"decode position {pos} outside a cache of "
                          f"{kv_len} slots")
-    lo, hi = chunk_bounds(kv_len, axis_size(mesh, "model"),
-                          axis_rank(mesh, "model"))
+    lo, hi = axes_bounds(kv_len, mesh, rule_axes("kv_seq", mesh))
     if lo <= pos < hi:
         cache[:, pos - lo] = new[:, 0].to(cache.dtype)
     return lo
@@ -539,15 +540,16 @@ def _write_slot_split(cache: torch.Tensor, new: torch.Tensor, pos: int,
 
 def _split_softmax(s: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's columns of softmax(s, -1) when the last axis of the
-    scores ``s`` (float32, masked with -inf) is split over ``model``: the
-    max and the sum are taken across the ranks."""
+    scores ``s`` (float32, masked with -inf) is split over the ``kv_seq``
+    rule's axes: the max and the sum are taken across the ranks."""
+    axes = rule_axes("kv_seq", mesh)
     if s.shape[-1]:
         m = s.amax(dim=-1)
     else:
         m = s.new_full(s.shape[:-1], -math.inf)
-    m = all_reduce(m, mesh, "model", op=torch.distributed.ReduceOp.MAX)
+    m = all_reduce(m, mesh, axes, op=torch.distributed.ReduceOp.MAX)
     p = torch.exp(s - m[..., None])
-    return p / all_reduce(p.sum(dim=-1), mesh, "model")[..., None]
+    return p / all_reduce(p.sum(dim=-1), mesh, axes)[..., None]
 
 
 def _decode_attention_split(q, k_cache, v_cache, pos: int, lo: int, mesh, *,
@@ -571,7 +573,28 @@ def _decode_attention_split(q, k_cache, v_cache, pos: int, lo: int, mesh, *,
     p = _split_softmax(s, mesh)
     out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return all_reduce(out, mesh, "model").reshape(B, 1, H, dh).to(q.dtype)
+    return all_reduce(out, mesh, rule_axes("kv_seq", mesh)) \
+        .reshape(B, 1, H, dh).to(q.dtype)
+
+
+def _heads_mode(H: int, Hkv: int, seq_only: bool, mesh):
+    """The padded group count G' of 'heads' mode on ``mesh``, or None where
+    the region splits the query rows instead ('seq' mode, local
+    attention, MLA, or a padding beyond 25%)."""
+    if seq_only or ATTN_SHARDING[0] != "heads":
+        return None
+    return _heads_padding(H, Hkv, axis_size(mesh, rule_axes("heads_shard", mesh)))
+
+
+def _attn_split(cfg, mode: str, seq_only: bool):
+    """The mesh axes whose ranks do different work in an attention region:
+    the ``kv_seq`` rule's in a decode step, else the ``heads_shard`` rule's
+    in 'heads' mode and the ``seq_shard`` rule's in 'seq' mode."""
+    if mode == "decode":
+        return rule_axes("kv_seq")
+    mesh = current_mesh()
+    gp = _heads_mode(cfg.n_heads, cfg.n_kv_heads, seq_only, mesh)
+    return rule_axes("heads_shard" if gp else "seq_shard", mesh)
 
 
 def _attn_prefill_mesh(p, q, k, v, positions, *, cfg, cdt, mode, local, mesh,
@@ -590,11 +613,10 @@ def _attn_prefill_mesh(p, q, k, v, positions, *, cfg, cdt, mode, local, mesh,
     """
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
-    msize, rank = axis_size(mesh, "model"), axis_rank(mesh, "model")
     new_cache = {"k": k, "v": v} if mode == "prefill" else None
-    gp = None
-    if heads_mode and ATTN_SHARDING[0] == "heads" and not local:
-        gp = _heads_padding(H, Hkv, msize)
+    gp = _heads_mode(H, Hkv, local or not heads_mode, mesh)
+    axes = rule_axes("heads_shard" if gp else "seq_shard", mesh)
+    msize, rank = axis_size(mesh, axes), axis_rank(mesh, axes)
     if gp is not None:
         G = H // Hkv
         Hp = Hkv * gp
@@ -610,10 +632,10 @@ def _attn_prefill_mesh(p, q, k, v, positions, *, cfg, cdt, mode, local, mesh,
         wo = F.pad(p["wo"].to(cdt).reshape(Hkv, G, dh, -1),
                    (0, 0, 0, 0, 0, gp - G)).reshape(Hp, dh, -1)
         y = o.reshape(B, S, hs * dh) @ wo[h0:h0 + hs].reshape(hs * dh, -1)
-        return all_reduce(y, mesh, "model").to(out_dtype), new_cache
-    lo, hi = chunk_bounds(S, msize, rank)
+        return all_reduce(y, mesh, axes).to(out_dtype), new_cache
+    lo, hi = axes_bounds(S, mesh, axes)
     o = blockwise_attention(q[:, lo:hi], k, v, positions[lo:hi], positions,
                             causal=True,
                             window=cfg.local_window if local else 0)
     y = o.reshape(B, hi - lo, H * dh) @ p["wo"].to(cdt)
-    return all_gather_dim(y, 1, mesh, "model", S).to(out_dtype), new_cache
+    return all_gather_dim(y, 1, mesh, axes, S).to(out_dtype), new_cache

@@ -5,10 +5,10 @@ Routing is softmax → top-k → renormalise, with the Switch load-balancing
 auxiliary loss.  Without a mesh (or on one whose ``model`` axis is 1) the
 dense fallback computes every expert on every token and gates the outputs.
 
-On a mesh whose ``model`` axis is larger than 1, :func:`moe_apply` runs a
-``local_map`` region (the reference's ``shard_map``) over each rank's
-tokens and its experts (``experts`` over ``model``, each expert's d_ff
-slice over ``data``), never the dense path:
+On a mesh whose expert axis (the ``experts`` rule's, ``model``) is larger
+than 1, :func:`moe_apply` runs a region (the reference's ``shard_map``)
+over each rank's tokens and its experts (each expert's d_ff slice over the
+``expert_dff`` rule's axes, ``data``), never the dense path:
 
 * prefill (the sequence divides by the ``model`` size): this rank's chunk
   of the sequence is dispatched capacity-bounded (GShard-style drops, sort-
@@ -26,7 +26,11 @@ other rows' partial sums into each row whenever ``data`` > 1.  Here the
 tokens are gathered over ``data`` before the dispatch and the outputs
 reduce-scattered back after it, so each token's d_ff slices are summed for
 that token.  The capacities count the gathered tokens; at ``data`` = 1 they
-are the reference's.  The auxiliary loss keeps the reference's definition:
+are the reference's.  DP-SGD runs each example alone on a mesh without
+its batch axes (:mod:`repro_torch.train.dp`), so no gather mixes one
+example's tokens into another's drops.  Where the ``expert_dff`` axes do
+not split the batch (the tokens alike on them) the outputs are added over
+them instead.  The auxiliary loss keeps the reference's definition:
 the mean over ranks of each rank's Switch loss on its own tokens.
 
 ``moe_stats()`` counts the region's calls by body (``ep_dispatch``,
@@ -43,10 +47,10 @@ import torch.nn.functional as F
 
 from .config import torch_dtype
 from .layers import PDef
-from .sharding import (ACT, all_gather_dim, all_reduce, all_to_all, axis_rank,
-                       axis_size, batch_axis_names, chunk_bounds, copy_in,
-                       current_mesh, gather_scatter_dim, is_dtensor,
-                       reduce_scatter_dim, region)
+from .sharding import (ACT, all_gather_dim, all_reduce, all_to_all,
+                       axes_bounds, axis_rank, axis_size, batch_axis_names,
+                       copy_in, current_mesh, gather_scatter_dim, is_dtensor,
+                       reduce_scatter_dim, region, rule_axes)
 
 _STATS: Dict[str, Any] = {"ep_dispatch": 0, "ep_replicated": 0, "dense": 0,
                           "dropped": 0}
@@ -65,10 +69,10 @@ def reset_moe_stats():
 
 
 def _count_dropped(n, mesh):
-    """Count ``n`` dropped pairs.  The ranks of one ``model`` index route
-    the same tokens (gathered over ``data``) and drop the same pairs, so
-    only ``data`` index 0 counts them."""
-    if axis_rank(mesh, "data") == 0:
+    """Count ``n`` dropped pairs.  The ranks of one expert index route the
+    same tokens (gathered over the ``expert_dff`` axes) and drop the same
+    pairs, so only index 0 along those axes counts them."""
+    if axis_rank(mesh, rule_axes("expert_dff", mesh)) == 0:
         _STATS["dropped"] = _STATS["dropped"] + n
 
 
@@ -127,12 +131,10 @@ def _switch_aux(probs, top_e, E: int, mesh=None):
         .float().mean(dim=0)
     mean_p = probs.mean(dim=0)
     if mesh is not None:
-        nb = 1
-        for a in batch_axis_names(mesh):
-            density = all_reduce(density, mesh, a)
-            mean_p = all_reduce(mean_p, mesh, a)
-            nb *= axis_size(mesh, a)
-        density, mean_p = density / nb, mean_p / nb
+        axes = batch_axis_names(mesh)
+        nb = axis_size(mesh, axes)
+        density = all_reduce(density, mesh, axes) / nb
+        mean_p = all_reduce(mean_p, mesh, axes) / nb
     return E * torch.sum(density * mean_p)
 
 
@@ -188,11 +190,12 @@ def _combine(gathered, keep, top_w, t: int, k: int, cdt):
     return (g * top_w.reshape(-1)[:, None].to(cdt)).reshape(t, k, -1).sum(1)
 
 
-def _ep_dispatch(p, xf, top_w, top_e, *, mo, cdt, mesh):
+def _ep_dispatch(p, xf, top_w, top_e, *, mo, cdt, mesh, ep):
     """Prefill EP body (the reference's ``_moe_local``): this rank's tokens
-    sent to their experts' ranks by ``all_to_all`` over ``model``, run
-    there capacity-bounded, and sent back.  Returns the routed output."""
-    n = axis_size(mesh, "model")
+    sent to their experts' ranks by ``all_to_all`` over the expert axis
+    ``ep`` (``model``), run there capacity-bounded, and sent back.  Returns
+    the routed output."""
+    n = axis_size(mesh, ep)
     t, d = xf.shape
     k = mo.top_k
     e_loc = mo.n_experts // n
@@ -207,8 +210,8 @@ def _ep_dispatch(p, xf, top_w, top_e, *, mo, cdt, mesh):
     send_idx = torch.where(keep1, dest * cap1 + slot1, n * cap1)
     send = _scatter_rows(send_idx, xf[src], n * cap1)
     send_e = _scatter_rows(send_idx, local_e, n * cap1, fill=-1)  # -1: empty
-    recv = all_to_all(send, mesh, "model")
-    recv_e = all_to_all(send_e, mesh, "model")
+    recv = all_to_all(send, mesh, ep)
+    recv_e = all_to_all(send_e, mesh, ep)
     valid = recv_e >= 0
 
     cap2 = int(math.ceil(n * cap1 / e_loc * mo.capacity_factor))
@@ -220,27 +223,27 @@ def _ep_dispatch(p, xf, top_w, top_e, *, mo, cdt, mesh):
     out = _expert_ffn(buf, p["w_g"], p["w_u"], p["w_o"], cdt)  # partial over f
     back = out.reshape(-1, d)[buf_idx.clamp_max(e_loc * cap2 - 1)]
     back = back * keep2[:, None].to(back.dtype)
-    ret = all_to_all(back, mesh, "model")
+    ret = all_to_all(back, mesh, ep)
     gathered = ret[send_idx.clamp_max(n * cap1 - 1)]
     _count_dropped((~keep1).sum() + (valid & ~keep2).sum(), mesh)
     return _combine(gathered, keep1, top_w, t, k, cdt)
 
 
-def _ep_replicated(p, xf, top_w, top_e, *, mo, cdt, mesh):
+def _ep_replicated(p, xf, top_w, top_e, *, mo, cdt, mesh, ep):
     """Decode EP body (the reference's ``_moe_replicated_local``): every
-    ``model`` rank holds all tokens, runs only its own experts, and the
-    outputs are added over ``model``.  The rest of the region is computed
-    alike on every ``model`` rank, so the tokens and weights enter the
-    experts through :func:`copy_in`: their gradients, partial over
-    ``model`` in here, leave it whole."""
-    xf, top_w = copy_in(xf, mesh, "model"), copy_in(top_w, mesh, "model")
-    n = axis_size(mesh, "model")
+    rank of the expert axis ``ep`` holds all tokens, runs only its own
+    experts, and the outputs are added over ``ep``.  The rest of the
+    region is computed alike on every ``ep`` rank, so the tokens and
+    weights enter the experts through :func:`copy_in`: their gradients,
+    partial over ``ep`` in here, leave it whole."""
+    xf, top_w = copy_in(xf, mesh, ep), copy_in(top_w, mesh, ep)
+    n = axis_size(mesh, ep)
     t, d = xf.shape
     k = mo.top_k
     e_loc = mo.n_experts // n
     flat_e = top_e.reshape(-1)
     src = torch.arange(t, device=xf.device).repeat_interleave(k)
-    mine = (flat_e // e_loc) == axis_rank(mesh, "model")
+    mine = (flat_e // e_loc) == axis_rank(mesh, ep)
     local_e = torch.where(mine, flat_e % e_loc, e_loc)     # foreign → overflow
     cap = int(math.ceil(t * k / e_loc * mo.capacity_factor))
     slot = bucket_slots(local_e, e_loc + 1)
@@ -250,7 +253,15 @@ def _ep_replicated(p, xf, top_w, top_e, *, mo, cdt, mesh):
     out = _expert_ffn(buf, p["w_g"], p["w_u"], p["w_o"], cdt)
     gathered = out.reshape(-1, d)[idx.clamp_max(e_loc * cap - 1)]
     _count_dropped((mine & ~keep).sum(), mesh)
-    return all_reduce(_combine(gathered, keep, top_w, t, k, cdt), mesh, "model")
+    return all_reduce(_combine(gathered, keep, top_w, t, k, cdt), mesh, ep)
+
+
+def _expert_axis(mesh) -> str:
+    """The one mesh axis the ``experts`` rule splits the experts over."""
+    axes = rule_axes("experts", mesh)
+    if len(axes) != 1:
+        raise ValueError(f"the experts split over one mesh axis, not {axes}")
+    return axes[0]
 
 
 def _moe_ep_local(x, p, *, cfg, mesh):
@@ -258,41 +269,53 @@ def _moe_ep_local(x, p, *, cfg, mesh):
     rows (all of the sequence), the router whole, this rank's experts and
     their d_ff slice.  Returns (y (b_loc, S, d), aux).
 
-    In training: the gather over ``data`` is reduce-scattered back (each
-    data rank runs its d_ff slice on every gathered token), the
-    reduce-scatter of the outputs all-gathered, the all_to_alls reversed;
-    the sequence slice over ``model`` and its all-gather follow the
-    replicated consumer (the gradient of this rank's rows is its chunk)."""
+    The expert axis ``ep`` is the ``experts`` rule's (``model``); each
+    expert's d_ff is split over the ``expert_dff`` rule's axes (``data``).
+    Along those of them that also split the batch the tokens are gathered
+    before the dispatch and the outputs reduce-scattered after it; along
+    the rest the tokens are alike already and the outputs are added.
+
+    In training: the gather is reduce-scattered back (each rank runs its
+    d_ff slice on every gathered token), the reduce-scatter of the outputs
+    all-gathered, the all_to_alls reversed; the sequence slice over ``ep``
+    and its all-gather follow the replicated consumer (the gradient of
+    this rank's rows is its chunk)."""
     mo = cfg.moe
     cdt = torch_dtype(cfg.compute_dtype)
-    n = axis_size(mesh, "model")
+    ep = _expert_axis(mesh)
+    n = axis_size(mesh, ep)
+    dff = rule_axes("expert_dff", mesh)
+    batch = batch_axis_names(mesh)
+    gather = tuple(a for a in dff if a in batch)
+    add = tuple(a for a in dff if a not in batch)
     b_loc, S, d = x.shape
     seq_shardable = S % n == 0
     if seq_shardable:
-        lo, hi = chunk_bounds(S, n, axis_rank(mesh, "model"))
+        lo, hi = axes_bounds(S, mesh, ep)
         x = x[:, lo:hi]
     s_loc = x.shape[1]
-    xs = gather_scatter_dim(x, 0, mesh, "data")
+    xs = gather_scatter_dim(x, 0, mesh, gather)
     xf = xs.reshape(-1, d).to(cdt)
     top_w, top_e, probs = _route_probs(xf, p["router"], mo)
-    own = slice(axis_rank(mesh, "data") * b_loc * s_loc,
-                (axis_rank(mesh, "data") + 1) * b_loc * s_loc)
+    g = axis_rank(mesh, gather)
+    own = slice(g * b_loc * s_loc, (g + 1) * b_loc * s_loc)
     aux = _switch_aux(probs[own], top_e[own], mo.n_experts)
     body = _ep_dispatch if seq_shardable else _ep_replicated
     _STATS["ep_dispatch" if seq_shardable else "ep_replicated"] += 1
-    y = body(p, xf, top_w, top_e, mo=mo, cdt=cdt, mesh=mesh)
+    y = body(p, xf, top_w, top_e, mo=mo, cdt=cdt, mesh=mesh, ep=ep)
     if mo.n_shared:
         y = y + _shared(p, xf, cdt)
-    # d_ff slices over 'data': each gathered token's partial sums added for
-    # that token, then this rank's rows kept.
-    y = reduce_scatter_dim(y.reshape(-1, s_loc, d), 0, mesh, "data")
+    # d_ff slices: each gathered token's partial sums added for that token,
+    # then this rank's rows kept
+    y = reduce_scatter_dim(y.reshape(-1, s_loc, d), 0, mesh, gather)
+    y = all_reduce(y, mesh, add)
     if seq_shardable:
-        y = all_gather_dim(y.contiguous(), 1, mesh, "model", S)
-    # the mean over the mesh of each shard's own aux; the model ranks of the
-    # replicated body route the same tokens, so it averages over the rest
+        y = all_gather_dim(y.contiguous(), 1, mesh, ep, S)
+    # the mean over the mesh of each shard's own aux; the expert ranks of
+    # the replicated body route the same tokens, so it averages over the rest
     aux, count = aux.reshape(1), 1
     for axis in mesh.mesh_dim_names:
-        if seq_shardable or axis != "model":
+        if seq_shardable or axis != ep:
             aux = all_reduce(aux, mesh, axis)
             count *= axis_size(mesh, axis)
     return y.to(x.dtype), (aux / count).reshape(())
@@ -300,30 +323,31 @@ def _moe_ep_local(x, p, *, cfg, mesh):
 
 def moe_apply(p, x, *, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (y, aux_loss).  On DTensors: the expert-parallel
-    region when the mesh's ``model`` axis is larger than 1 (the dense
-    fallback over gathered weights otherwise, as the reference)."""
+    region when the expert axis is larger than 1 (the dense fallback over
+    gathered weights otherwise, as the reference)."""
     if not is_dtensor(x):
         _STATS["dense"] += 1
         return _moe_dense_fallback(p, x, cfg)
     mesh = current_mesh()
     keys = sorted(p)
-    n = axis_size(mesh, "model")
+    ep = _expert_axis(mesh)
+    n = axis_size(mesh, ep)
     if n == 1:
         def body(x, *leaves):
             _STATS["dense"] += 1
             return _moe_dense_fallback(dict(zip(keys, leaves)), x, cfg, mesh)
         names = [(None,) * p[k].dim() for k in keys]
     else:
-        if cfg.moe.n_experts % axis_size(mesh, "model"):
+        if cfg.moe.n_experts % n:
             raise ValueError(f"{cfg.moe.n_experts} experts do not split over "
-                             f"a model axis of {axis_size(mesh, 'model')}")
+                             f"an expert axis of {n}")
 
         def body(x, *leaves):
             return _moe_ep_local(x, dict(zip(keys, leaves)), cfg=cfg, mesh=mesh)
         defs = moe_defs(cfg)
         names = [defs[k].axes for k in keys]
-    # the model ranks split the sequence (EP dispatch) or route alike
-    # (replicated body, S not a multiple of the model axis)
+    # the expert ranks split the sequence (EP dispatch) or route alike
+    # (replicated body, S not a multiple of the expert axis)
     return region(body, (x,) + tuple(p[k] for k in keys),
                   [("batch", None, None)] + names, (ACT, ()),
-                  split_model=x.shape[1] % n == 0)
+                  split=(ep,) if x.shape[1] % n == 0 else ())

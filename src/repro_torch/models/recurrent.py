@@ -44,7 +44,7 @@ def _on_mesh(fn, kind, p, x, cfg, mode, cache, pos):
     return mixer_region(lambda p, x, cache, mesh, **kw: fn(p, x, cache=cache,
                                                            **kw),
                         p, x, cache=cache, cache_axes=RNN_CACHE_AXES[kind],
-                        split_model=False, cfg=cfg, mode=mode, pos=pos)
+                        cfg=cfg, mode=mode, pos=pos)
 
 # ---------------------------------------------------------------------------
 # RG-LRU (Griffin): h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)

@@ -20,6 +20,16 @@ The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
 ``mesh_dim_names`` (:mod:`repro_torch.launch.mesh` builds them); its
 process groups must exist before it does, so nothing here starts one.
 
+The mesh regions take their axes from the active rules
+(:func:`rule_axes`): the batch rows from ``batch``, the vocabulary shard
+from ``vocab``, attention's query rows, heads and cache slots from
+``seq_shard``, ``heads_shard`` and ``kv_seq``, SwiGLU's hidden units from
+``dff``, the experts and their d_ff slices from ``experts`` and
+``expert_dff``; a rule naming several mesh axes splits over them major
+first (:func:`axes_bounds`), and one naming none leaves the work whole on
+every rank.  So they run under the dry run's per-shape rules as under
+:data:`DEFAULT_RULES`.
+
 Training runs through the same regions.  Their collectives are autograd
 functions with Megatron's conjugate backward (:func:`all_reduce` out of a
 region: identity; :func:`copy_in`: all-reduce; :func:`all_gather_dim` for a
@@ -152,7 +162,9 @@ def logical(x, *names: Optional[str]):
 
 def spec_for(mesh, *names: Optional[str],
              rules: Optional[Rules] = None) -> NamedSharding:
-    r = dict(DEFAULT_RULES, **(rules or {}))
+    """The sharding of logical ``names`` on ``mesh`` under the active rules
+    (the default rules outside a context), updated by ``rules``."""
+    r = dict(current_rules() or DEFAULT_RULES, **(rules or {}))
     return NamedSharding(mesh, _resolve(names, mesh.mesh_dim_names, r))
 
 
@@ -161,26 +173,63 @@ def param_spec(mesh, logical_axes: Sequence[Optional[str]],
     return spec_for(mesh, *logical_axes, rules=rules)
 
 
-BATCH_AXES = ("pod", "data")     # the mesh axes a batch splits over
+BATCH_AXES = ("pod", "data")     # the mesh axes the default rules split a batch over
+
+
+def rule_axes(name: str, mesh=None) -> Tuple[str, ...]:
+    """The mesh axes (major first) that logical axis ``name`` splits over
+    under the active rules (the default rules outside a context), on
+    ``mesh`` (the active one by default); () where it is replicated."""
+    mesh = current_mesh() if mesh is None else mesh
+    a = _resolve((name,), mesh.mesh_dim_names,
+                 current_rules() or DEFAULT_RULES)[0]
+    return () if a is None else (a,) if isinstance(a, str) else tuple(a)
 
 
 def batch_axis_names(mesh) -> Tuple[str, ...]:
-    return tuple(a for a in BATCH_AXES if a in mesh.mesh_dim_names)
+    """The mesh axes a batch splits over: the ``batch`` rule's."""
+    return rule_axes("batch", mesh)
 
 
 # ---------------------------------------------------------------------------
 # Helpers for the mesh regions of the model code
 # ---------------------------------------------------------------------------
 
-def axis_size(mesh, name: str) -> int:
-    """Size of mesh axis ``name`` (1 when the mesh lacks it)."""
+def _axes(axis) -> Tuple[str, ...]:
+    """One mesh axis name or several (major first), as a tuple."""
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def axis_size(mesh, name) -> int:
+    """Size of mesh axis ``name`` (1 when the mesh lacks it); of several
+    axes, the product."""
     names = tuple(mesh.mesh_dim_names)
-    return mesh.size(names.index(name)) if name in names else 1
+    n = 1
+    for a in _axes(name):
+        n *= mesh.size(names.index(a)) if a in names else 1
+    return n
 
 
-def axis_rank(mesh, name: str) -> int:
-    """This process's coordinate along mesh axis ``name`` (0 when absent)."""
-    return mesh.get_local_rank(name) if name in mesh.mesh_dim_names else 0
+def axis_rank(mesh, name) -> int:
+    """This process's coordinate along mesh axis ``name`` (0 when absent);
+    along several, the flat index, the first axis major."""
+    i = 0
+    for a in _axes(name):
+        i = i * axis_size(mesh, a) + (
+            mesh.get_local_rank(a) if a in mesh.mesh_dim_names else 0)
+    return i
+
+
+def axes_bounds(n: int, mesh, axes) -> Tuple[int, int]:
+    """[start, stop) of this rank's chunk of ``n`` rows split over ``axes``
+    one after the other, the first major: the rows a DTensor sharded on
+    those mesh dims in that order holds (:func:`chunk_bounds` at each
+    level)."""
+    lo, hi = 0, n
+    for a in _axes(axes):
+        l2, h2 = chunk_bounds(hi - lo, axis_size(mesh, a), axis_rank(mesh, a))
+        lo, hi = lo + l2, lo + h2
+    return lo, hi
 
 
 def chunk_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
@@ -209,7 +258,7 @@ def place(full: torch.Tensor, mesh, pl):
             lo, hi = chunk_bounds(local.shape[p.dim], mesh.size(i),
                                   mesh.get_local_rank(i))
             local = local.narrow(p.dim, lo, hi - lo)
-    if local.data_ptr() != full.data_ptr() or local.numel() != full.numel():
+    if local.numel() != full.numel():      # a slice: its own storage
         local = local.clone(memory_format=torch.contiguous_format)
     return wrap_local(local, mesh, pl, full.shape)
 
@@ -244,21 +293,6 @@ def to_local(x, *names: Optional[str]):
     """The local shard of ``x`` redistributed to the logical ``names``; a
     plain tensor as it is."""
     return logical(x, *names).to_local() if is_dtensor(x) else x
-
-
-def require_default_rules():
-    """Raise unless the active rules are ``DEFAULT_RULES``: the mesh regions
-    write their collectives for that mapping (the vocabulary, ``kv_seq``
-    and ``dff`` over ``model``, ``expert_dff`` over ``data``, the batch over
-    ``pod`` and ``data``), so under any other they would compute wrong
-    values without an error."""
-    rules = current_rules()
-    if rules is not None and rules != DEFAULT_RULES:
-        changed = sorted(k for k in set(rules) | set(DEFAULT_RULES)
-                         if rules.get(k) != DEFAULT_RULES.get(k))
-        raise NotImplementedError(
-            f"the mesh regions run under the default sharding rules only; "
-            f"these rules change {changed}")
 
 
 def require_group():
@@ -395,10 +429,14 @@ class _AllToAll(torch.autograd.Function):
         return out, None
 
 
-def all_reduce(x: torch.Tensor, mesh, axis: str, op=None) -> torch.Tensor:
-    """The sum (or ``op``) of ``x`` over the ranks of mesh axis ``axis``.
-    The sum's backward is the identity (a region's partial sums leaving
-    it); another ``op`` carries no gradient."""
+def all_reduce(x: torch.Tensor, mesh, axis, op=None) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over the ranks of mesh axis ``axis``
+    (or of several axes).  The sum's backward is the identity (a region's
+    partial sums leaving it); another ``op`` carries no gradient."""
+    if not isinstance(axis, str):
+        for a in axis:
+            x = all_reduce(x, mesh, a, op)
+        return x
     if axis_size(mesh, axis) == 1:
         return x
     group = mesh.get_group(axis)
@@ -410,21 +448,31 @@ def all_reduce(x: torch.Tensor, mesh, axis: str, op=None) -> torch.Tensor:
     return x
 
 
-def copy_in(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def copy_in(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     """``x`` itself; in the backward its gradient summed over mesh axis
-    ``axis`` (a value alike on every rank entering work each does
+    ``axis`` or axes (a value alike on every rank entering work each does
     differently)."""
+    if not isinstance(axis, str):
+        for a in axis:
+            x = copy_in(x, mesh, a)
+        return x
     if axis_size(mesh, axis) == 1:
         return x
     return _CopyIn.apply(x, mesh.get_group(axis))
 
 
-def all_gather_dim(x: torch.Tensor, dim: int, mesh, axis: str,
+def all_gather_dim(x: torch.Tensor, dim: int, mesh, axis,
                    total: int) -> torch.Tensor:
     """The chunks of a dim of ``total`` rows split over mesh axis ``axis``
-    (``chunk_bounds``), this rank's chunk ``x``, put back together on every
-    rank.  Backward: this rank's chunk of the gradient, which the
-    consumers, computed alike on every rank, give whole."""
+    (``chunk_bounds``; several axes: :func:`axes_bounds`), this rank's
+    chunk ``x``, put back together on every rank.  Backward: this rank's
+    chunk of the gradient, which the consumers, computed alike on every
+    rank, give whole."""
+    if not isinstance(axis, str):
+        for i in reversed(range(len(axis))):     # innermost level first
+            lo, hi = axes_bounds(total, mesh, axis[:i])
+            x = all_gather_dim(x, dim, mesh, axis[i], hi - lo)
+        return x
     n = axis_size(mesh, axis)
     if n == 1:
         return x
@@ -433,10 +481,14 @@ def all_gather_dim(x: torch.Tensor, dim: int, mesh, axis: str,
     return out.movedim(0, dim)
 
 
-def gather_scatter_dim(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+def gather_scatter_dim(x: torch.Tensor, dim: int, mesh, axis) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated along ``dim`` over
-    mesh axis ``axis``; backward, the gradient reduce-scattered (each rank
-    worked differently on the gathered rows)."""
+    mesh axis ``axis`` (several: the first major); backward, the gradient
+    reduce-scattered (each rank worked differently on the gathered rows)."""
+    if not isinstance(axis, str):
+        for a in reversed(axis):
+            x = gather_scatter_dim(x, dim, mesh, a)
+        return x
     n = axis_size(mesh, axis)
     if n == 1:
         return x
@@ -444,10 +496,14 @@ def gather_scatter_dim(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tens
     return out.movedim(0, dim)
 
 
-def reduce_scatter_dim(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+def reduce_scatter_dim(x: torch.Tensor, dim: int, mesh, axis) -> torch.Tensor:
     """This rank's chunk along ``dim`` of the sum of ``x`` over mesh axis
-    ``axis``; ``dim`` must split evenly over the axis.  Backward: the
-    gradient all-gathered."""
+    ``axis`` (several: the first major); ``dim`` must split evenly over
+    the axis.  Backward: the gradient all-gathered."""
+    if not isinstance(axis, str):
+        for a in axis:
+            x = reduce_scatter_dim(x, dim, mesh, a)
+        return x
     n = axis_size(mesh, axis)
     if n == 1:
         return x
@@ -464,28 +520,28 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _AllToAll.apply(x, mesh.get_group(axis))
 
 
-def grad_placements(pl, mesh, split_model: bool):
+def grad_placements(pl, mesh, split: Sequence[str]):
     """The gradient placements of a region input placed ``pl``: ``Shard``
     where the input is split (each rank's gradient of its own slice),
     ``Partial`` over the batch axes where it is replicated (each rank's
-    rows contribute), and over ``model`` when ``split_model`` (the model
-    ranks did different work on it: query rows, heads, d_ff, vocabulary
+    rows contribute), and over the axes ``split`` (the ranks along them
+    did different work on it: query rows, heads, d_ff, vocabulary
     columns, expert tokens); ``Replicate`` where the ranks computed the
     same thing."""
     from torch.distributed.tensor import Partial, Shard
     names = tuple(mesh.mesh_dim_names)
+    partial = set(batch_axis_names(mesh)) | set(split)
     return tuple(p if isinstance(p, Shard)
-                 else Partial() if names[i] in BATCH_AXES
-                 or (split_model and names[i] == "model") else p
+                 else Partial() if names[i] in partial else p
                  for i, p in enumerate(pl))
 
 
-def _enter(x, names, mesh, split_model: bool):
+def _enter(x, names, mesh, split: Sequence[str]):
     """The local shard of DTensor ``x`` placed by the logical ``names``,
     its gradient placed by :func:`grad_placements`."""
     x = logical(x, *names)
     return x.to_local(grad_placements=grad_placements(
-        x.placements, mesh, split_model))
+        x.placements, mesh, split))
 
 
 def _global_shape(local: torch.Tensor, pl, mesh) -> Tuple[int, ...]:
@@ -499,19 +555,18 @@ def _global_shape(local: torch.Tensor, pl, mesh) -> Tuple[int, ...]:
 
 
 def region(fn, args: Sequence, arg_names: Sequence, out_names: Sequence, *,
-           split_model: bool = True):
+           split: Sequence[str] = ()):
     """``fn`` over the local shards of ``args`` under the active mesh: the
     counterpart of the reference's ``shard_map``.  Each DTensor arg is
     redistributed to the placements of its logical names in ``arg_names``
     (None for an int or a plain tensor), ``fn`` runs on the local tensors
     with explicit collectives, and its outputs come back as DTensors placed
     by ``out_names``, split evenly (their global shapes are inferred).  The
-    inputs' gradients are placed by :func:`grad_placements`:
-    ``split_model`` says whether the ``model`` ranks work differently on
-    them."""
-    require_default_rules()
+    inputs' gradients are placed by :func:`grad_placements`: ``split``
+    names the mesh axes whose ranks work differently on them (the axes of
+    the rule the region splits its work by)."""
     mesh, rules = current_mesh(), current_rules()
-    local = [_enter(a, n, mesh, split_model) if is_dtensor(a) else a
+    local = [_enter(a, n, mesh, split) if is_dtensor(a) else a
              for a, n in zip(args, arg_names)]
     outs = fn(*local)
     single = isinstance(outs, torch.Tensor)
@@ -523,7 +578,7 @@ def region(fn, args: Sequence, arg_names: Sequence, out_names: Sequence, *,
 
 
 def mixer_region(fn, p, x, *, cache=None, cache_axes=None, inplace=(),
-                 place=True, split_model=True, **kw):
+                 place=True, split: Sequence[str] = (), **kw):
     """A mixer under the active mesh: ``fn(p, x, cache=..., mesh=..., **kw)``
     over local shards.  ``x`` enters in the residual stream's layout and
     ``y`` leaves in it; each parameter enters gathered;
@@ -531,21 +586,20 @@ def mixer_region(fn, p, x, *, cache=None, cache_axes=None, inplace=(),
     in ``inplace`` (a decode step writes its slot there), else gathered,
     and each cache leaf ``fn`` returns is placed back by ``cache_axes``
     (left gathered when not ``place``: a prefill's K/V, which the model
-    pads before placing).  ``split_model``: the ``model`` ranks do
-    different work (attention), so the gradients of ``x`` and ``p`` are
-    partial over ``model`` (:func:`grad_placements`).  Cache lengths need
-    not split evenly, so unlike :func:`region` the outputs are wrapped with
-    explicit global shapes."""
-    require_default_rules()
+    pads before placing).  ``split``: the mesh axes whose ranks do
+    different work (attention's query rows or heads), over which the
+    gradients of ``x`` and ``p`` are partial (:func:`grad_placements`).
+    Cache lengths need not split evenly, so unlike :func:`region` the
+    outputs are wrapped with explicit global shapes."""
     mesh = current_mesh()
-    p_loc = {k: _enter(v, (None,) * v.dim(), mesh, split_model)
+    p_loc = {k: _enter(v, (None,) * v.dim(), mesh, split)
              for k, v in p.items()}
     c_loc = None
     if cache is not None:
         c_loc = {k: to_local(v, *(cache_axes[k] if k in inplace
                                   else gathered(cache_axes[k])))
                  for k, v in cache.items()}
-    y, nc = fn(p_loc, _enter(x, ACT, mesh, split_model), cache=c_loc,
+    y, nc = fn(p_loc, _enter(x, ACT, mesh, split), cache=c_loc,
                mesh=mesh, **kw)
     B = x.shape[0]
     y = from_local(y, mesh, ACT, (B,) + tuple(y.shape[1:]))

@@ -67,12 +67,10 @@ from .layers import (KV_CACHE_AXES, MLA_CACHE_AXES, PDef, attn_apply,
 from .moe import moe_apply, moe_defs
 from .recurrent import (RNN_CACHE_AXES, mlstm_apply, mlstm_defs,
                         rglru_apply, rglru_defs, slstm_apply, slstm_defs)
-from .sharding import (ACT, all_reduce, axis_rank, axis_size,
-                       batch_axis_names, batch_rows, chunk_bounds,
-                       current_mesh, current_rules, distribute, from_local,
-                       is_dtensor, logical, param_spec, region,
-                       require_default_rules, require_group, sharding_rules,
-                       to_local)
+from .sharding import (ACT, all_reduce, axes_bounds, batch_axis_names,
+                       batch_rows, current_mesh, current_rules, distribute,
+                       from_local, is_dtensor, logical, param_spec, region,
+                       require_group, rule_axes, sharding_rules, to_local)
 
 MIXER_DEFS = {
     "attn": attn_defs, "attn_local": attn_defs, "attn_bidir": attn_defs,
@@ -274,8 +272,7 @@ def _gathered_region(fn, p, acts, out_names):
     return region(lambda *a: fn(dict(zip(keys, a[na:])), *a[:na]),
                   tuple(acts) + tuple(p[k] for k in keys),
                   [("batch",) + (None,) * (t.dim() - 1) for t in acts]
-                  + [(None,) * p[k].dim() for k in keys], out_names,
-                  split_model=False)
+                  + [(None,) * p[k].dim() for k in keys], out_names)
 
 
 def _bidir_attn_apply(p, x, *, cfg, kv=None):
@@ -566,11 +563,10 @@ class Model(ParamTree):
 
     def _rules(self):
         """The mesh context this model runs in (none without a mesh): the
-        default rules, which the mesh regions' collectives assume."""
-        if self.mesh is None:
-            return _NO_CONTEXT
-        if current_mesh() is self.mesh:
-            require_default_rules()
+        caller's, when one is active (its rules, or DP-SGD's example mesh,
+        :func:`repro_torch.train.dp.example_mesh`), else the model's mesh
+        under the default rules."""
+        if self.mesh is None or current_mesh() is not None:
             return _NO_CONTEXT
         return sharding_rules(self.mesh)
 
@@ -583,8 +579,9 @@ class Model(ParamTree):
         """The decode step's input embedding of ``tokens``: the embedding
         table scaled by √d, or for a frontend stub lm_headᵀ scaled by √d
         (what a teacher-forced prompt of such a model extends with).  On a
-        mesh, a region: each ``model`` rank looks up the tokens in its
-        vocabulary shard and the rows are added over ``model``."""
+        mesh, a region: each rank looks up the tokens in its shard of the
+        vocabulary (split over the ``vocab`` rule's axes) and the rows are
+        added over those axes."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         stub = self.cfg.frontend != "none"
         if self.mesh is not None:
@@ -594,13 +591,14 @@ class Model(ParamTree):
         return table[tokens] * math.sqrt(self.cfg.d_model)
 
     def _embeds_on_mesh(self, tokens, stub: bool):
-        mesh, V = self.mesh, self.cfg.vocab_size
+        mesh, V = current_mesh(), self.cfg.vocab_size
         B = tokens.shape[0]
+
+        vocab = rule_axes("vocab", mesh)
 
         def body(table):
             table = table.t() if stub else table
-            lo, hi = chunk_bounds(V, axis_size(mesh, "model"),
-                                  axis_rank(mesh, "model"))
+            lo, hi = axes_bounds(V, mesh, vocab)
             b0, b1 = batch_rows(mesh, B)
             t = tokens[b0:b1]
             inside = (t >= lo) & (t < hi)
@@ -609,11 +607,11 @@ class Model(ParamTree):
             else:
                 rows = table.new_zeros(t.shape + (table.shape[1],))
             rows = rows * inside[..., None].to(rows.dtype)
-            return all_reduce(rows, mesh, "model") * math.sqrt(self.cfg.d_model)
+            return all_reduce(rows, mesh, vocab) * math.sqrt(self.cfg.d_model)
 
         table = self.lm_head if stub else self.embed
         names = (None, "vocab") if stub else ("vocab", None)
-        return region(body, (table,), (names,), (ACT,))
+        return region(body, (table,), (names,), (ACT,), split=vocab)
 
     def _host_rows(self, a):
         """Input rows for this model: on a mesh, this rank's batch rows as
@@ -621,8 +619,9 @@ class Model(ParamTree):
         a = torch.as_tensor(a, device=self.device)
         if self.mesh is None:
             return a
-        b0, b1 = batch_rows(self.mesh, a.shape[0])
-        return from_local(a[b0:b1], self.mesh,
+        mesh = current_mesh()
+        b0, b1 = batch_rows(mesh, a.shape[0])
+        return from_local(a[b0:b1], mesh,
                           ("batch",) + (None,) * (a.dim() - 1), a.shape)
 
     def _embed(self, batch) -> torch.Tensor:
@@ -672,7 +671,7 @@ class Model(ParamTree):
             return x @ self.lm_head.to(x.dtype)
         # this rank's vocabulary columns, placed ("batch", "seq", "vocab")
         y = x.to_local() @ to_local(self.lm_head, None, "vocab").to(x.dtype)
-        return from_local(y, self.mesh, ("batch", "seq", "vocab"),
+        return from_local(y, current_mesh(), ("batch", "seq", "vocab"),
                           tuple(x.shape[:2]) + (self.cfg.vocab_size,))
 
     # -- entry points --------------------------------------------------------
@@ -704,13 +703,14 @@ class Model(ParamTree):
 
     def _nll_on_mesh(self, x, labels) -> torch.Tensor:
         """The masked mean cross entropy, vocabulary-parallel: a region in
-        which each ``model`` rank holds its vocabulary columns of the logits
-        for its batch rows; the max (no gradient), the sum of exponentials
-        and the gold logit are reduced over ``model``, the nll sum and the
-        mask count over the batch axes."""
-        mesh, V = self.mesh, self.cfg.vocab_size
-        lo, hi = chunk_bounds(V, axis_size(mesh, "model"),
-                              axis_rank(mesh, "model"))
+        which each rank holds its vocabulary columns of the logits (split
+        over the ``vocab`` rule's axes) for its batch rows; the max (no
+        gradient), the sum of exponentials and the gold logit are reduced
+        over the vocabulary's axes, the nll sum and the mask count over the
+        batch axes."""
+        mesh, V = current_mesh(), self.cfg.vocab_size
+        vocab = rule_axes("vocab", mesh)
+        lo, hi = axes_bounds(V, mesh, vocab)
         if hi == lo:
             raise ValueError(f"a vocabulary of {V} leaves a model rank none")
         b0, b1 = batch_rows(mesh, labels.shape[0])
@@ -719,30 +719,29 @@ class Model(ParamTree):
         def body(x, w):
             logits = (x @ w.to(x.dtype)).float()          # (b, S, hi - lo)
             with torch.no_grad():
-                m = all_reduce(logits.amax(dim=-1), mesh, "model",
+                m = all_reduce(logits.amax(dim=-1), mesh, vocab,
                                op=dist.ReduceOp.MAX)
             sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
-            lse = m + torch.log(all_reduce(sumexp, mesh, "model"))
+            lse = m + torch.log(all_reduce(sumexp, mesh, vocab))
             gold = logits.gather(-1, (lab - lo).clamp(0, hi - lo - 1)
                                  [..., None])[..., 0]
             inside = (lab >= lo) & (lab < hi)
-            gold = all_reduce(torch.where(inside, gold, 0.0), mesh, "model")
+            gold = all_reduce(torch.where(inside, gold, 0.0), mesh, vocab)
             mask = (lab >= 0).float()
             nll = torch.sum((lse - gold) * mask).reshape(1)
             count = mask.sum().reshape(1)
-            for a in batch_axis_names(mesh):
-                nll = all_reduce(nll, mesh, a)
-                count = all_reduce(count, mesh, a)
+            nll = all_reduce(nll, mesh, batch_axis_names(mesh))
+            count = all_reduce(count, mesh, batch_axis_names(mesh))
             return (nll / count.clamp_min(1.0)).reshape(())
 
         return region(body, (x, self.lm_head), (ACT, (None, "vocab")),
-                      ((),)).to_local()
+                      ((),), split=vocab).to_local()
 
-    def forward(self, batch):
+    def forward(self, batch, aux_weight: float = 0.01):
         """The training loss without remat, :meth:`loss_fn`: what
         ``torch.func.functional_call`` calls, and ``torch.func.grad``
         refuses the saved-tensor hooks that remat works through."""
-        return self.loss_fn(batch, remat=False)
+        return self.loss_fn(batch, remat=False, aux_weight=aux_weight)
 
     @torch.inference_mode()
     def prefill(self, batch, cache_len: Optional[int] = None):

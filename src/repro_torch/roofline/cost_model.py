@@ -18,16 +18,21 @@ this module re-derives the two costs for the CUDA kernels of this package:
   memory) at the tile and grid of ``axis_geometry``, then one
   ``torch.cumsum`` per marked axis.
 
-Both take the roofline time, ``max(operations / peak, bytes / bandwidth)``,
-scale it by what the launch shape costs (:meth:`CostModel.occupancy_slowdown`)
-and add one launch overhead per launch.  CUDA blocks run at once across the
-SMs, so there is no per-block overhead; what a launch shape costs is low
-occupancy: fewer blocks than SMs leave SMs idle, and few warps on an SM (the
-blocks an SM holds are limited by its shared memory, its registers and its
-threads) leave its latency unhidden.  The per-axis kernel's threads carry 32
-independent sums each, so fewer warps hide its latency.  A launch with more,
-smaller blocks is never scored slower for that alone: only the factor bytes
-each extra block stages cost it anything.
+:meth:`CostModel.roofline_terms` scores a whole LM step of the dry run
+(:mod:`repro_torch.roofline.analyze`) with the rows' datasheet tensor-core
+and NVLink rates, which the tuner never reads.
+
+Both kernel costs take the roofline time, ``max(operations / peak, bytes /
+bandwidth)``, scale it by what the launch shape costs
+(:meth:`CostModel.occupancy_slowdown`) and add one launch overhead per
+launch.  CUDA blocks run at once across the SMs, so there is no per-block
+overhead; what a launch shape costs is low occupancy: fewer blocks than SMs
+leave SMs idle, and few warps on an SM (the blocks an SM holds are limited
+by its shared memory, its registers and its threads) leave its latency
+unhidden.  The per-axis kernel's threads carry 32 independent sums each, so
+fewer warps hide its latency.  A launch with more, smaller blocks is never
+scored slower for that alone: only the factor bytes each extra block stages
+cost it anything.
 
 The ``"cpu"`` row scores the plain PyTorch versions that serve CPU tensors:
 a fixed cost per torch operation plus the bytes they touch.  The fused and
@@ -81,6 +86,11 @@ class DeviceSpec:
     smem_per_sm: int = 0         # shared memory bytes of one SM
     threads_per_sm: int = 2048   # resident threads an SM may hold
     regs_per_sm: int = 65536     # 32-bit registers of one SM
+    # The LM roofline's rates (roofline/analyze.py), read by nothing the
+    # tuner scores: dense bf16 on the tensor cores, and the card-to-card
+    # link (the counterpart of a TPU's ICI).  0 for a row without them.
+    tensor_flops_bf16: float = 0.0
+    link_bw: float = 0.0
 
     @property
     def plain(self) -> bool:
@@ -96,17 +106,22 @@ _BLOCK_SMEM = 232448   # 227 KB: what one Hopper block may use
 # H100 rows: NVIDIA H100 Tensor Core GPU datasheet (fp32 outside the tensor
 # cores, HBM bandwidth); SM counts from the NVIDIA H100 architecture white
 # paper (132 SXM5, 114 PCIe); 228 KB of shared memory per SM, 227 KB a block.
+# The same datasheet gives the BF16 tensor-core rate with 2:4 sparsity
+# (1,979 TFLOPS SXM, 1,513 PCIe), of which the dense rate is half, and the
+# NVLink rate of a card (900 GB/s SXM, 600 GB/s for PCIe's NVLink bridge).
 _H100_SXM = DeviceSpec("nvidia h100 80gb hbm3", peak_flops=67e12,
                        peak_flops_f32=67e12, hbm_bw=3.35e12,
                        smem_limit=_BLOCK_SMEM, launch_s=4e-6, sms=132,
-                       smem_per_sm=233472)
+                       smem_per_sm=233472, tensor_flops_bf16=989.5e12,
+                       link_bw=900e9)
 DEVICE_TABLE: Dict[str, DeviceSpec] = {
     "cpu": DeviceSpec("cpu", peak_flops=1e11, peak_flops_f32=1e11,
                       hbm_bw=5e10, smem_limit=_BLOCK_SMEM, launch_s=1e-5),
     _H100_SXM.kind: _H100_SXM,
     "nvidia h100 pcie": replace(_H100_SXM, kind="nvidia h100 pcie",
                                 peak_flops=51e12, peak_flops_f32=51e12,
-                                hbm_bw=2.0e12, sms=114),
+                                hbm_bw=2.0e12, sms=114,
+                                tensor_flops_bf16=756.5e12, link_bw=600e9),
 }
 
 
@@ -348,3 +363,21 @@ class CostModel:
             if op is not None:
                 total += 8.0 * n_out / dev.hbm_bw + dev.launch_s
         return total
+
+    # -------------------------------------------------------- roofline terms
+    def roofline_terms(self, flops: float, hbm_bytes: float,
+                       coll_bytes: float = 0.0, chips: int = 1) -> dict:
+        """The three classic terms for a global (all-chip) workload: FLOPs
+        at the dense bf16 tensor-core rate, bytes at the memory rate,
+        collective bytes at the card-to-card link rate (each falls back to
+        the row's kernel rates where it has none)."""
+        dev = self.device
+        t_compute = flops / (chips * (dev.tensor_flops_bf16 or dev.peak_flops))
+        t_memory = hbm_bytes / (chips * dev.hbm_bw)
+        t_collective = coll_bytes / (chips * (dev.link_bw or dev.hbm_bw))
+        terms = {"compute": t_compute, "memory": t_memory,
+                 "collective": t_collective}
+        bottleneck = max(terms, key=terms.get)
+        return {"t_compute": t_compute, "t_memory": t_memory,
+                "t_collective": t_collective, "bottleneck": bottleneck,
+                "t_dominant": terms[bottleneck]}

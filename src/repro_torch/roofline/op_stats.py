@@ -1,0 +1,177 @@
+"""Per-device FLOP, byte and collective counts of eager PyTorch work: the
+port's counterpart of ``repro.roofline.hlo_stats``.
+
+There is no HLO to read in PyTorch, so :class:`OpStats` is a
+``TorchDispatchMode`` that sees every aten op this process runs while it
+is active, on real or fake tensors (``FakeTensorMode``), and counts:
+
+* FLOPs: 2 · |out| · K per matrix product (``mm``, ``addmm``, ``bmm``,
+  ``baddbmm``; ``matmul``, ``einsum`` and ``linear`` decompose into them),
+  with ``torch.utils.flop_counter``'s formulas (convolutions and the fused
+  attention kernels too, should any run).  Elementwise work is ignored, as
+  ``hlo_stats`` ignores it.
+* Bytes: eager PyTorch fuses nothing, so every op that computes reads each
+  of its tensor operands once and writes each output once; an op is
+  charged its operand bytes plus its output bytes.  Views, metadata
+  queries and bare allocations (``empty``) move nothing and are charged
+  nothing.  This is ``hlo_stats``' ``bytes_raw`` convention at the
+  granularity of aten ops; XLA's fusions make its ``bytes`` smaller.
+* Collectives: the output-buffer bytes and the count of each collective op
+  by kind, under the reference's names (``all-gather``, ``all-reduce``,
+  ``reduce-scatter``, ``all-to-all``, ``collective-permute``): the
+  functional collectives DTensor issues and the in-place ``c10d`` ops the
+  mesh regions' ``torch.distributed`` calls dispatch to.
+
+* Memory: the peak of the bytes held at once in storages that the ops
+  allocated while the mode was active (each new output storage counted
+  until it is freed), ``peak_bytes``; with the bytes still held at the
+  end, ``live_bytes``.
+
+A DTensor op is left to DTensor, whose local ops (and collectives) are then
+counted: the counts are this rank's, per device, as ``hlo_stats`` reads
+post-SPMD HLO.  Loops run eagerly, so a loop of 17 steps is counted 17
+times; there is no trip count to parse.
+"""
+from __future__ import annotations
+
+import weakref
+from collections import defaultdict
+from typing import Dict
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+# op name -> (kind, where its output buffer is: "out" the return value,
+# "arg0" the first argument of an in-place c10d op)
+_COLLECTIVE_OPS = {
+    "_c10d_functional.all_gather_into_tensor": ("all-gather", "out"),
+    "_c10d_functional.all_gather_into_tensor_out": ("all-gather", "out"),
+    "_c10d_functional.all_gather_into_tensor_coalesced": ("all-gather", "out"),
+    "_c10d_functional.all_reduce": ("all-reduce", "out"),
+    "_c10d_functional.all_reduce_": ("all-reduce", "out"),
+    "_c10d_functional.all_reduce_coalesced": ("all-reduce", "out"),
+    "_c10d_functional.all_reduce_coalesced_": ("all-reduce", "out"),
+    "_c10d_functional.reduce_scatter_tensor": ("reduce-scatter", "out"),
+    "_c10d_functional.reduce_scatter_tensor_coalesced": ("reduce-scatter", "out"),
+    "_c10d_functional.all_to_all_single": ("all-to-all", "out"),
+    "c10d.allgather_": ("all-gather", "arg0"),
+    "c10d._allgather_base_": ("all-gather", "arg0"),
+    "c10d.allgather_into_tensor_coalesced_": ("all-gather", "arg0"),
+    "c10d.allreduce_": ("all-reduce", "arg0"),
+    "c10d.allreduce_coalesced_": ("all-reduce", "arg0"),
+    "c10d.reduce_scatter_": ("reduce-scatter", "arg0"),
+    "c10d._reduce_scatter_base_": ("reduce-scatter", "arg0"),
+    "c10d.reduce_scatter_tensor_coalesced_": ("reduce-scatter", "arg0"),
+    "c10d.alltoall_base_": ("all-to-all", "arg0"),
+    "c10d.alltoall_": ("all-to-all", "arg0"),
+    "c10d.send": ("collective-permute", "arg0"),
+    "c10d.recv_": ("collective-permute", "arg0"),
+}
+
+# bare allocations, aliases and host-side bookkeeping: no bytes moved
+_MOVES_NOTHING = {"empty", "empty_strided", "empty_like", "new_empty",
+                  "new_empty_strided", "detach", "alias", "lift_fresh",
+                  "wait_tensor", "_local_scalar_dense", "set_",
+                  "record_stream"}
+_METADATA = {"size", "sym_size", "stride", "sym_stride", "numel", "sym_numel",
+             "dim", "storage_offset", "sym_storage_offset", "is_contiguous",
+             "sym_is_contiguous", "is_strides_like_format",
+             "is_non_overlapping_and_dense"}
+
+
+def _nbytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(x)
+               if isinstance(t, torch.Tensor))
+
+
+def _name(func) -> str:
+    pk = func._overloadpacket
+    return f"{pk._qualified_op_name.split('::')[0]}.{pk.__name__}"
+
+
+class OpStats(TorchDispatchMode):
+    """Counts FLOPs, bytes and collectives of the ops run while active;
+    :meth:`stats` returns them in ``hlo_stats``' keys."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import flop_registry
+        self._flop_fns = flop_registry
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.coll = defaultdict(float)
+        self.coll_n = defaultdict(int)
+        self.n_ops = 0
+        self.live = self.peak = 0
+        self._held = set()
+
+    def _hold(self, out, args):
+        """Count each new storage among ``out`` until it is freed."""
+        mine = {id(t.untyped_storage()) for t in tree_leaves(args)
+                if isinstance(t, torch.Tensor)}
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = id(st)
+            if key in mine or key in self._held:
+                continue
+            n = st.nbytes()
+            self._held.add(key)
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, key, n)
+
+    def _free(self, key, n):
+        self._held.discard(key)
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented          # DTensor runs it as local ops
+        pk = func._overloadpacket
+        if pk.__name__ in _METADATA or func is torch.ops.prim.layout.default:
+            return NotImplemented
+        if pk not in self._flop_fns and func is not torch.ops.prim.device.default:
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        out = func(*args, **kwargs)
+        name = _name(func)
+        self.n_ops += 1
+        coll = _COLLECTIVE_OPS.get(name)
+        if coll is not None:
+            kind, where = coll
+            self.coll[kind] += _nbytes(out if where == "out" else args[0])
+            self.coll_n[kind] += 1
+        elif pk in self._flop_fns:
+            self.flops += float(self._flop_fns[pk](*args, **kwargs, out_val=out))
+        if not func.is_view and func is not torch.ops.prim.device.default:
+            if coll is None and pk.__name__ not in _MOVES_NOTHING:
+                self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+            self._hold(out, (args, kwargs))
+        return out
+
+    def stats(self) -> Dict:
+        """``{"flops", "bytes", "collective_bytes", "collective_counts",
+        "n_ops", "peak_bytes", "live_bytes"}``, per device (this rank)."""
+        return {"flops": self.flops, "bytes": self.bytes,
+                "collective_bytes": {k: self.coll.get(k, 0.0) for k in COLLECTIVES},
+                "collective_counts": {k: self.coll_n.get(k, 0) for k in COLLECTIVES},
+                "n_ops": self.n_ops, "peak_bytes": self.peak,
+                "live_bytes": self.live}
+
+
+def op_stats(fn, *args, **kwargs):
+    """(``fn(*args, **kwargs)``, its :meth:`OpStats.stats`)."""
+    mode = OpStats()
+    with mode:
+        out = fn(*args, **kwargs)
+    return out, mode.stats()

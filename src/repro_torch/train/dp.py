@@ -13,6 +13,27 @@ tensor hooks that ``torch.utils.checkpoint`` works through, so the DP path
 runs its loss without remat; remat changes memory, not values
 (``tests/test_torch_dp.py`` holds a one-example DP gradient equal to the
 remat path's).
+
+On a mesh (DTensor parameters) ``torch.func`` cannot run: it wraps each
+DTensor in a plain functorch tensor, which has no ``to_local``, so no
+region can open.  There the examples run one at a time through plain
+autograd, each as a batch of one, as the reference's ``vmap`` feeds them:
+
+* every ``(pod, data)`` coordinate takes its own rows of the batch, and the
+  ranks of its ``model`` axis (the *example mesh*, the mesh without its
+  batch axes) run each of them together, the parameters gathered over the
+  batch axes.  So an example's tokens meet no other example's, in the
+  expert-parallel MoE too: each is routed alone, with its own capacity;
+* an example's norm is the norm of its whole gradient: each leaf's local
+  sum of squares is added over the mesh axes that split it
+  (:func:`~repro_torch.train.optimizer.global_norm`), and the example is
+  clipped by it;
+* the clipped sums are added over the batch axes and divided by the global
+  batch, then placed like their parameters.
+
+:func:`add_dp_noise` draws each leaf's noise at the leaf's global shape, in
+the tree's order, and keeps the local shard, so a mesh step adds exactly
+the noise a one-device step adds from the same generator state.
 """
 from __future__ import annotations
 
@@ -25,6 +46,9 @@ from repro_torch.core.accountant import (PrivacyBudget, approx_dp_eps, gdp_mu,
                                          zcdp_rho)
 
 from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.models.sharding import (all_reduce, batch_axis_names,
+                                         batch_rows, current_rules, is_dtensor,
+                                         place, sharding_rules, wrap_local)
 
 
 @dataclass(frozen=True)
@@ -72,7 +96,11 @@ def per_example_clipped_grad(loss_fn, params, batch, clip_norm: float):
     ``params``' structure.  The parameters enter detached: with their
     ``requires_grad`` on (a training model's), autograd would otherwise
     record the whole per-example computation for a second derivative and
-    keep every intermediate alive."""
+    keep every intermediate alive.  DTensor parameters (a mesh model's)
+    take the per-example loop of :func:`_mesh_clipped_grad`."""
+    if any(is_dtensor(p) for p in tree_leaves(params)):
+        return _mesh_clipped_grad(loss_fn, params, batch, clip_norm)
+
     def single(p, example):
         return loss_fn(p, tree_map(lambda x: x[None], example))
 
@@ -89,12 +117,91 @@ def per_example_clipped_grad(loss_fn, params, batch, clip_norm: float):
         g * scale.reshape((-1,) + (1,) * (g.dim() - 1)), dim=0), grads)
 
 
+def example_mesh(mesh):
+    """The mesh without its batch axes: the ranks that run one example
+    together (the whole mesh when the rules split no batch)."""
+    batch = batch_axis_names(mesh)
+    names = tuple(a for a in mesh.mesh_dim_names if a not in batch)
+    if not names:
+        raise ValueError(f"a mesh of axes {mesh.mesh_dim_names} has no axis "
+                         f"besides the batch axes {batch}")
+    return mesh if not batch else mesh[names if len(names) > 1 else names[0]]
+
+
+def _gathered_placements(p):
+    """``p``'s placements with every batch axis replicated."""
+    from torch.distributed.tensor import Replicate
+    batch = batch_axis_names(p.device_mesh)
+    return [Replicate() if n in batch else pl
+            for n, pl in zip(p.device_mesh.mesh_dim_names, p.placements)]
+
+
+def _on_example_mesh(p, sub):
+    """Parameter ``p`` gathered over the batch axes, as a leaf DTensor on
+    the example mesh ``sub`` (its local shard shared when nothing needs
+    gathering)."""
+    with torch.no_grad():
+        local = p.redistribute(p.device_mesh,
+                               _gathered_placements(p)).to_local()
+    batch = batch_axis_names(p.device_mesh)
+    pl = [pl for n, pl in zip(p.device_mesh.mesh_dim_names, p.placements)
+          if n not in batch]
+    return wrap_local(local.detach(), sub, pl, p.shape).requires_grad_()
+
+
+def _mesh_clipped_grad(loss_fn, params, batch, clip_norm: float):
+    """:func:`per_example_clipped_grad` for DTensor parameters on one mesh:
+    this coordinate's examples one by one on the example mesh, each
+    clipped by its global norm; the clipped sum added over the batch axes;
+    the mean placed like ``params``."""
+    from repro_torch.train.optimizer import global_norm, placed_like
+    mesh = tree_leaves(params)[0].device_mesh
+    sub = example_mesh(mesh)
+    ex_params = tree_map(lambda p: _on_example_mesh(p, sub), params)
+    ex_leaves = tree_leaves(ex_params)
+    acc_tree = tree_map(lambda p: torch.zeros(
+        p.to_local().shape, dtype=torch.float32, device=p.device), ex_params)
+    acc = tree_leaves(acc_tree)
+    B = next(iter(tree_leaves(batch))).shape[0]
+    b0, b1 = batch_rows(mesh, B)
+    with sharding_rules(sub, current_rules()):
+        for j in range(b0, b1):
+            loss = loss_fn(ex_params, tree_map(lambda x: x[j:j + 1], batch))
+            grads = torch.autograd.grad(loss, ex_leaves, allow_unused=True)
+            with torch.no_grad():
+                grads = [torch.zeros_like(p) if g is None else placed_like(g, p)
+                         for g, p in zip(grads, ex_leaves)]
+                n = global_norm(grads)
+                scale = torch.clamp(clip_norm / torch.clamp_min(n, 1e-12),
+                                    max=1.0)
+                for a, g in zip(acc, grads):
+                    a.add_(g.to_local().float() * scale)
+            del loss, grads
+
+    def mean(a, p):
+        a = all_reduce(a, mesh, batch_axis_names(mesh))
+        g = wrap_local((a / B).to(p.dtype), mesh, _gathered_placements(p),
+                       p.shape)
+        return g.redistribute(mesh, p.placements)
+
+    with torch.no_grad():
+        return tree_map(mean, acc_tree, params)
+
+
 def add_dp_noise(grads, gen: torch.Generator, clip_norm: float,
                  noise_multiplier: float, batch_size: int):
     """``grads`` plus Gaussian noise of std ``C·σ/B`` (the clipped mean's
     sensitivity): one ``torch.randn`` per leaf from ``gen`` (a generator on
-    the leaves' device), in the tree's order."""
+    the leaves' device), in the tree's order, at the leaf's global shape.
+    A DTensor leaf keeps its shard of the draw, which is freed before the
+    next leaf is drawn."""
     std = clip_norm * noise_multiplier / batch_size
-    return tree_map(lambda g: g + (std * torch.randn(
-        g.shape, generator=gen, dtype=torch.float32, device=g.device)).to(g.dtype),
-        grads)
+
+    def noisy(g):
+        z = std * torch.randn(g.shape, generator=gen, dtype=torch.float32,
+                              device=g.device)
+        if is_dtensor(g):
+            z = place(z, g.device_mesh, g.placements)
+        return g + z.to(g.dtype)
+
+    return tree_map(noisy, grads)

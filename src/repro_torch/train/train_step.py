@@ -20,9 +20,11 @@ batch.  Microbatch *i* is the batch's global chunk *i*, as the reference
 splits it, and the model keeps this rank's rows of it, so each
 microbatch's masked mean is the whole chunk's.  The gradients accumulate
 as DTensors and are placed like their parameters before the update.
-DP-SGD on a mesh is not ported (ROADMAP item 15): ``torch.func.vmap`` over
-regions that hold collectives is the next slice, so ``dp=`` with a mesh
-model raises.
+DP-SGD runs there too: each ``(pod, data)`` coordinate clips its own
+examples one at a time on the ``model`` ranks, the clipped sums are added
+over the batch axes, and the noise is drawn at each leaf's global shape
+(:mod:`repro_torch.train.dp`), so a mesh step equals the one-device step
+from the same generator state.
 """
 from __future__ import annotations
 
@@ -93,12 +95,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     ``loss`` (the mean of the microbatch losses), ``grad_norm`` and ``lr``
     as 0-d tensors.  Switches the model's gradients on.  The DP path takes
     its per-example gradients without remat (:mod:`repro_torch.train.dp`);
-    it raises on a mesh model."""
-    if dp is not None and model.mesh is not None:
-        raise NotImplementedError(
-            "DP-SGD on a mesh is not ported yet (ROADMAP item 15): "
-            "torch.func.vmap over the mesh regions' collectives; train it "
-            "without mesh= or without dp=")
+    on a mesh model it clips the examples one at a time."""
     model.requires_grad_(True)
     dp_loss = functional_loss(model)
 

@@ -182,15 +182,37 @@ def test_plan_chain_counts_bytes_by_itemsize():
 
 
 # ----------------------------------------------------------- bit-exactness
-@pytest.mark.parametrize("seed", range(6))
+# tests/test_autotune.py::test_tuned_fp32_bit_identical_to_default's
+# falsifying example (n_axes=3, sizes=(8, 8, 2), batch=1, seed=3): the chain
+# [I, I, F (2 x 2)], at which the reference's pallas_call raises ("captures
+# constants"), untuned and tuned alike (ROADMAP queue 3).
+REFERENCE_FALSIFYING = "reference-falsifying"
+
+
+@pytest.mark.parametrize("seed", list(range(6)) + [REFERENCE_FALSIFYING])
 def test_tuned_fp32_bit_identical_to_untuned(seed):
-    """Rows are independent: any tuned rows give the untuned bits."""
-    rng = np.random.default_rng(seed)
-    facs, dims = _rand_chain(rng, rng.integers(2, 12, size=3))
-    batch = int(rng.integers(1, 40))
-    x = torch.as_tensor(rng.standard_normal((batch, math.prod(dims))),
-                        dtype=torch.float32)
+    """Rows are independent: any tuned rows give the untuned bits, at the
+    reference's falsifying chain too (drawn as its test draws it), where
+    the result also matches the dense Kronecker product."""
+    if seed == REFERENCE_FALSIFYING:
+        rng = np.random.default_rng(3)
+        facs, dims = _rand_chain(rng, (8, 8, 2))
+        batch = 1
+        x = torch.as_tensor(
+            rng.standard_normal((batch, math.prod(dims))).astype(np.float32))
+    else:
+        rng = np.random.default_rng(seed)
+        facs, dims = _rand_chain(rng, rng.integers(2, 12, size=3))
+        batch = int(rng.integers(1, 40))
+        x = torch.as_tensor(rng.standard_normal((batch, math.prod(dims))),
+                            dtype=torch.float32)
     untuned = fused_chain_matvec(facs, x, dims, smem_budget=232448)
+    if seed == REFERENCE_FALSIFYING:
+        dense = np.ones((1, 1))
+        for f, n in zip(facs, dims):
+            dense = np.kron(dense, np.eye(n) if f is None else f)
+        want = x.double().numpy() @ dense.T
+        assert np.allclose(untuned.double().numpy(), want, rtol=1e-5, atol=1e-5)
     for spec in (DEVICE_TABLE["cpu"], H100):
         cfg = tune_chain(facs, dims, batch=batch, spec=spec, device="cpu",
                          persist=False)

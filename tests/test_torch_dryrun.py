@@ -1,0 +1,463 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) and its roofline
+readers (``repro_torch.roofline.op_stats``, ``.analyze``) on the CPU,
+against the JAX package's ``hlo_stats`` and dry run.
+
+* ``OpStats`` counts FLOPs as ``tests/test_roofline.py`` checks
+  ``hlo_stats``: a 64x128 by 128x256 product exactly, a loop of 17 steps
+  17 times, nested loops of 3 and 5 steps 15 times (eager loops run every
+  step, so the counts are exact).
+* The mesh regions take their axes from the active rules: at (2, 2) on
+  four gloo ranks, under ``long_500k``'s rules (batch replicated, the
+  cache length over (``data``, ``model``)) reduced Qwen3-4B and
+  RecurrentGemma-2B prefill and decode, and under ``vocab`` None reduced
+  Whisper-small's prefill, decode and loss and gradients, equal the
+  no-mesh model within rel 1e-5 (gradients 1e-4 of each leaf's max, as
+  ``tests/test_torch_mesh_train.py``).
+* Against ``hlo_stats``: reduced configs on a fake (2, 2) mesh against the
+  reference's compiled step on a (2, 2) mesh of four forced host devices.
+  The port's per-device dot FLOPs are never fewer than the reference's and
+  at most rel 0.25 more.  The cause is the port's attention regions, which
+  compute the q/k/v (and in decode the output) projections whole on every
+  ``model`` rank where XLA's partitioner splits them over ``qkv``: reduced
+  Qwen3-4B's decode reads 147,456 against 122,880, the difference exactly
+  half of those projections; in training remat adds its own (both
+  recompute each layer group under "dots", with different saveable
+  sets).  The per-device ``argument_size_in_bytes`` equals the reference's
+  ``memory_analysis`` once the scalar bookkeeping is set aside: the
+  reference's decode ``pos`` (4 bytes) and train ``count`` and key (12
+  bytes), the port's generator state in the train state.
+* Fake against real: reduced Qwen3-4B's train step counted on a fake
+  (1, 4) and (2, 2) mesh gives the FLOPs and collective counts the same
+  counters give on the real gloo run of that step, exactly.
+* A production cell at 256 fake ranks (``qwen3-4b decode_32k single``)
+  reaches ``ok`` in a subprocess within 120 s; a skipped cell carries the
+  reference's reason; ``analyze_cell`` on the record gives positive terms
+  and a bottleneck.
+* ``examples/cell_fairness_torch.py``, run once: its variance ranges and
+  spreads equal those of the reference's planner within rel 1e-9, and it
+  imports neither jax nor ``repro``.
+"""
+import datetime
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from test_torch_mesh import _draw, _rel, flatten, unflatten
+from test_torch_mesh_train import _full, _load, make_batch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REL = 1e-5
+REL_GRAD = 1e-4
+LONG_RULES = {"batch": None, "kv_seq": ("data", "model"), "heads": None}
+VOCAB_RULES = {"vocab": None}
+# name -> (arch, rules)
+RULE_CASES = {"long-qwen3-4b": ("qwen3-4b", LONG_RULES),
+              "long-recurrentgemma-2b": ("recurrentgemma-2b", LONG_RULES),
+              "vocab-whisper-small": ("whisper-small", VOCAB_RULES)}
+B_RULES, S_RULES, EXTRA = 2, 16, 4
+# (arch, kind) at (2, 2): B, S
+COUNT_CASES = {("qwen3-4b", "prefill"): (4, 64), ("qwen3-4b", "decode"): (4, 64),
+               ("qwen3-4b", "train"): (4, 64),
+               ("deepseek-v2-236b", "prefill"): (4, 64)}
+REL_FLOPS = 0.25
+# the reference's scalar arguments the port passes on the host or not at all
+REF_SCALARS = {"prefill": 0, "decode": 4, "train": 12}
+PRODUCTION_S = 120
+REAL_SHAPES = ((1, 4), (2, 2))
+REAL_STEP = (4, 32)          # B, S of the fake-against-real train step
+
+
+# ---------------------------------------------------------------------------
+# Counting
+# ---------------------------------------------------------------------------
+
+def test_op_stats_counts_dot_flops():
+    from repro_torch.roofline.op_stats import op_stats
+    a, b = torch.zeros(64, 128), torch.zeros(128, 256)
+    _, st = op_stats(lambda: a @ b)
+    assert st["flops"] == 2 * 64 * 128 * 256
+    assert st["bytes"] == 4 * (64 * 128 + 128 * 256 + 64 * 256)
+
+
+def test_op_stats_counts_every_loop_step():
+    from repro_torch.roofline.op_stats import op_stats
+    a = torch.zeros(64, 64)
+
+    def f(x):
+        for _ in range(17):
+            x = x @ a
+        return x
+
+    assert op_stats(f, a)[1]["flops"] == 17 * 2 * 64 ** 3
+
+
+def test_op_stats_nested_loops():
+    from repro_torch.roofline.op_stats import op_stats
+    a = torch.zeros(32, 32)
+
+    def f(x):
+        for _ in range(3):
+            for _ in range(5):
+                x = torch.einsum("ij,jk->ik", x, a)
+        return x
+
+    assert op_stats(f, a)[1]["flops"] == 15 * 2 * 32 ** 3
+
+
+# ---------------------------------------------------------------------------
+# The rules: four gloo ranks against the no-mesh model
+# ---------------------------------------------------------------------------
+
+def _rules_rank(rank, world, store_path, wdir, out):
+    import torch.distributed as dist
+    from repro_torch.configs import load_all, shapes
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_paths
+    from repro_torch.models.sharding import sharding_rules
+    from repro_torch.train.optimizer import placed_like
+    torch.set_num_threads(1)
+    load_all()
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh("cpu", (2, 2))
+        for name, (arch, rules) in RULE_CASES.items():
+            cfg = shapes.reduced_config(arch)
+            w = unflatten(_load(f"{wdir}/{name}.npz"))
+            batch = {k: torch.tensor(v)
+                     for k, v in _load(f"{wdir}/batch-{name}.npz").items()}
+            model = Model.from_params(cfg, lm_params_from_jax(cfg, w, mesh=mesh),
+                                      mesh=mesh)
+            got = {}
+            with sharding_rules(mesh, rules):
+                inputs = {k: v for k, v in batch.items() if k != "labels"}
+                logits, caches = model.prefill(inputs, cache_len=S_RULES + EXTRA)
+                got["prefill"] = _full(logits)
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                logits, _ = model.decode_step(tok, caches, S_RULES)
+                got["decode"] = _full(logits)
+                if rules is VOCAB_RULES:
+                    model.requires_grad_(True)
+                    loss = model.loss_fn(batch, remat=False, aux_weight=0.0)
+                    loss.backward()
+                    got["loss"] = float(loss.detach())
+                    for k, p in tree_paths(model.tree()).items():
+                        g = torch.zeros_like(p) if p.grad is None \
+                            else placed_like(p.grad, p)
+                        got[f"grad/{k}"] = _full(g)
+            if rank == 0:
+                np.savez(f"{out}/{name}.npz", **got)
+        # the counters on a real step, for the fake one to equal
+        from repro_torch.launch.dryrun import count_real_train_step
+        for shape in REAL_SHAPES:
+            st = count_real_train_step(
+                shapes.reduced_config("qwen3-4b"), *REAL_STEP,
+                make_host_mesh("cpu", shape), microbatches=2)
+            if rank == 0:
+                with open(f"{out}/real-{shape[0]}{shape[1]}.json", "w") as f:
+                    json.dump(st, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def rule_runs(tmp_path_factory):
+    from repro.configs import load_all, shapes
+    from repro.models import Model as JaxModel
+    load_all()
+    base = tmp_path_factory.mktemp("dryrun_rules")
+    wdir, out = base / "weights", base / "port"
+    wdir.mkdir()
+    out.mkdir()
+    for i, (name, (arch, _)) in enumerate(RULE_CASES.items()):
+        cfg = shapes.reduced_config(arch)
+        np.savez(wdir / f"{name}.npz", **flatten(
+            _draw(JaxModel(cfg).param_defs(), np.random.default_rng(80 + i))))
+        np.savez(wdir / f"batch-{name}.npz",
+                 **make_batch(cfg, B_RULES, S_RULES, seed=80 + i))
+    ctx = mp.get_context("spawn")
+    ranks = [ctx.Process(target=_rules_rank,
+                         args=(r, 4, str(base / "store"), str(wdir), str(out)))
+             for r in range(4)]
+    for p in ranks:
+        p.start()
+    for p in ranks:
+        p.join(timeout=300)
+    hung = [p for p in ranks if p.is_alive()]
+    for p in hung:
+        p.terminate()
+        p.join(5)
+    assert not hung, "a gloo rank did not finish within 300 s"
+    assert all(p.exitcode == 0 for p in ranks), [p.exitcode for p in ranks]
+    return {"weights": wdir, "port": out}
+
+
+@pytest.mark.parametrize("name", list(RULE_CASES))
+def test_regions_under_dry_run_rules_match_no_mesh(rule_runs, name):
+    """Prefill and one decode step (and, under ``vocab`` None, the loss and
+    every gradient) at (2, 2) under the dry run's rules against the port
+    without a mesh."""
+    from repro_torch.configs import load_all, shapes
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_paths
+    load_all()
+    arch, rules = RULE_CASES[name]
+    cfg = shapes.reduced_config(arch)
+    w = unflatten(_load(rule_runs["weights"] / f"{name}.npz"))
+    model = Model.from_params(cfg, lm_params_from_jax(cfg, w), device="cpu")
+    batch = {k: torch.tensor(v)
+             for k, v in _load(rule_runs["weights"] / f"batch-{name}.npz").items()}
+    got = _load(rule_runs["port"] / f"{name}.npz")
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    logits, caches = model.prefill(inputs, cache_len=S_RULES + EXTRA)
+    assert _rel(got["prefill"], logits.numpy()) < REL
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    logits, _ = model.decode_step(tok, caches, S_RULES)
+    assert _rel(got["decode"], logits.numpy()) < REL
+    if rules is VOCAB_RULES:
+        model.requires_grad_(True)
+        loss = model.loss_fn(batch, remat=False, aux_weight=0.0)
+        loss.backward()
+        loss = float(loss.detach())
+        assert abs(float(got["loss"]) - loss) <= REL * abs(loss)
+        for k, p in tree_paths(model.tree()).items():
+            want = np.zeros(p.shape, np.float32) if p.grad is None \
+                else p.grad.numpy()
+            assert _rel(got[f"grad/{k}"], want) < REL_GRAD, k
+
+
+@pytest.mark.parametrize("shape", REAL_SHAPES)
+def test_fake_step_counts_equal_the_real_step(rule_runs, shape):
+    """Reduced Qwen3-4B's train step (2 microbatches, remat): the matrix-
+    product FLOPs and the collectives of each kind that ``OpStats`` counts
+    on rank 0 of a fake mesh equal those it counts on rank 0 of the real
+    gloo run, exactly."""
+    import torch.distributed as dist
+    from repro_torch.configs import load_all, shapes
+    from repro_torch.launch.dryrun import count_step, start_fake_group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import DEFAULT_RULES
+    load_all()
+    with open(rule_runs["port"] / f"real-{shape[0]}{shape[1]}.json") as f:
+        real = json.load(f)
+    start_fake_group(4)
+    try:
+        fake = count_step(shapes.reduced_config("qwen3-4b"), "train",
+                          *REAL_STEP, make_mesh(shape, ("data", "model"), "cpu"),
+                          DEFAULT_RULES, microbatches=2, device="cpu")["op_stats"]
+    finally:
+        dist.destroy_process_group()
+    assert real["flops"] > 0 and fake["flops"] == real["flops"]
+    assert fake["collective_counts"] == real["collective_counts"]
+    assert sum(real["collective_counts"].values()) > 0
+
+
+# ---------------------------------------------------------------------------
+# Counts against hlo_stats on (2, 2)
+# ---------------------------------------------------------------------------
+
+def _reference_counts(out):
+    """The reference's per-device dot FLOPs and argument bytes of each
+    COUNT_CASES step on a (2, 2) mesh of four forced host devices."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from repro.configs import load_all, shapes
+    from repro.models import Model
+    from repro.models.sharding import sharding_rules, spec_for
+    from repro.models.transformer import cache_axes, cache_shape_structs
+    from repro.roofline.hlo_stats import hlo_stats
+    from repro.train.optimizer import AdamWConfig, init_opt_state
+    from repro.train.train_step import make_train_step
+    from repro.launch.dryrun import _axes_to_sharding, _opt_axes_like
+    load_all()
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    res = {}
+    for (arch, kind), (B, S) in COUNT_CASES.items():
+        cfg = shapes.reduced_config(arch)
+        model = Model(cfg)
+        params = model.param_shapes()
+        psh = _axes_to_sharding(mesh, model.param_axes())
+        tok = jax.ShapeDtypeStruct((B, 1 if kind == "decode" else S), jnp.int32)
+        tsh = spec_for(mesh, "batch", None)
+        with sharding_rules(mesh):
+            if kind == "train":
+                ocfg = AdamWConfig()
+                step = make_train_step(model, ocfg, microbatches=1, remat=True)
+                state = {"params": params, "opt": jax.eval_shape(
+                    lambda p: init_opt_state(p, ocfg), params),
+                    "rng": jax.ShapeDtypeStruct((2,), jnp.uint32)}
+                ssh = {"params": psh, "opt": _axes_to_sharding(
+                    mesh, _opt_axes_like(model.param_axes(), False)),
+                    "rng": NamedSharding(mesh, P())}
+                fn = jax.jit(step, in_shardings=(ssh, {"tokens": tsh, "labels": tsh}),
+                             out_shardings=(ssh, None), donate_argnums=(0,))
+                args = (state, {"tokens": tok, "labels": tok})
+            elif kind == "prefill":
+                fn = jax.jit(lambda p, b: model.prefill(p, b),
+                             in_shardings=(psh, {"tokens": tsh}))
+                args = (params, {"tokens": tok})
+            else:
+                cs = cache_shape_structs(cfg, B, S, dtype=jnp.bfloat16)
+                csh = _axes_to_sharding(mesh, cache_axes(cfg, B, S))
+                fn = jax.jit(lambda p, t, c, pos: model.decode_step(p, t, c, pos),
+                             in_shardings=(psh, tsh, csh, NamedSharding(mesh, P())),
+                             out_shardings=(None, csh), donate_argnums=(2,))
+                args = (params, tok, cs, jax.ShapeDtypeStruct((), jnp.int32))
+            compiled = fn.lower(*args).compile()
+        ma = compiled.memory_analysis()
+        res[f"{arch}/{kind}/flops"] = hlo_stats(compiled.as_text())["flops"]
+        res[f"{arch}/{kind}/args"] = int(ma.argument_size_in_bytes)
+    np.savez(out, **res)
+
+
+def _port_counts():
+    import torch.distributed as dist
+    from repro_torch.configs import load_all, shapes
+    from repro_torch.launch.dryrun import count_step, start_fake_group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import DEFAULT_RULES
+    load_all()
+    start_fake_group(4)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        res = {}
+        for (arch, kind), (B, S) in COUNT_CASES.items():
+            cfg = shapes.reduced_config(arch)
+            rec = count_step(cfg, kind, B, S, mesh, DEFAULT_RULES, device="cpu")
+            res[f"{arch}/{kind}/flops"] = rec["op_stats"]["flops"]
+            res[f"{arch}/{kind}/args"] = rec["memory_analysis"]["argument_size_in_bytes"]
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def counts(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun_counts") / "ref.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), str(out)],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    port = _port_counts()
+    log, _ = proc.communicate(timeout=300)
+    assert proc.returncode == 0, log.decode()[-3000:]
+    return port, _load(out)
+
+
+@pytest.mark.parametrize("case", [f"{a}/{k}" for a, k in COUNT_CASES])
+def test_op_stats_flops_match_hlo_stats_at_2x2(counts, case):
+    port, ref = counts
+    kind = case.split("/")[1]
+    want = float(ref[f"{case}/flops"])
+    assert want > 0
+    assert want <= port[f"{case}/flops"] <= (1 + REL_FLOPS) * want, \
+        (port[f"{case}/flops"], want)
+    rng = torch.Generator().get_state().numel() if kind == "train" else 0
+    assert port[f"{case}/args"] - rng == int(ref[f"{case}/args"]) - REF_SCALARS[kind]
+
+
+# ---------------------------------------------------------------------------
+# Production cells, analyze, the example
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def production(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun_cell")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--arch", "qwen3-4b", "--shape", "decode_32k",
+                           "--mesh", "single", "--out", str(out)],
+                          env=env, capture_output=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr.decode()[-3000:]
+    with open(out / "qwen3-4b__decode_32k__single.json") as f:
+        return json.load(f)
+
+
+def test_production_cell_at_256_fake_ranks(production):
+    rec = production
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["chips"] == 256 and rec["trace_s"] < PRODUCTION_S
+    ma = rec["memory_analysis"]
+    assert all(ma[k] > 0 for k in ("argument_size_in_bytes",
+                                   "output_size_in_bytes", "temp_size_in_bytes"))
+    assert rec["op_stats"]["flops"] > 0
+    assert rec["collective_counts"]["all-gather"] > 0
+    assert rec["n_params"] > 3e9 and rec["model_flops"] > 0
+
+
+def test_skipped_cell_carries_the_reference_reason():
+    from repro.configs import load_all as jload
+    from repro.configs.shapes import cell_is_applicable
+    from repro_torch.configs import load_all
+    from repro_torch.launch.dryrun import run_cell
+    jload()
+    load_all()
+    rec = run_cell("qwen3-4b", "long_500k", "single", device="cpu")
+    assert rec["status"] == "skipped"
+    assert rec["reason"] == cell_is_applicable("qwen3-4b", "long_500k")[1]
+
+
+def test_analyze_cell_on_a_port_record(production, tmp_path):
+    from repro_torch.roofline.analyze import (analyze_all, analyze_cell,
+                                              markdown_table)
+    cell = analyze_cell(production)
+    assert min(cell.t_compute, cell.t_memory, cell.t_collective) > 0
+    assert cell.bottleneck in ("compute", "memory", "collective")
+    assert 0 < cell.useful_ratio and 0 < cell.mfu_bound <= 1
+    with open(tmp_path / "qwen3-4b__decode_32k__single.json", "w") as f:
+        json.dump(production, f)
+    table = markdown_table(analyze_all(str(tmp_path)))
+    assert "| qwen3-4b | decode_32k |" in table
+
+
+def test_cell_fairness_example_matches_reference_planner():
+    import importlib.util
+    from repro.core import all_kway, select_sum_of_variances
+    from repro.data.tabular import adult_domain
+    path = os.path.join(ROOT, "examples", "cell_fairness_torch.py")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    code = (f"import runpy, sys; out = runpy.run_path({path!r})['main'](); "
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "or m == 'repro' for m in sys.modules), 'imports jax or repro'")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr.decode()[-2000:]
+    assert b"spread across marginals" in proc.stdout
+    spec = importlib.util.spec_from_file_location("cell_fairness_torch", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    dom = adult_domain()
+    wk = all_kway(dom, 3, include_lower=True)
+    for scheme in ex.SCHEMES:
+        got = ex.fairness(scheme)
+        wks = wk.reweighted(scheme)
+        plan = select_sum_of_variances(wks, 1.0, dict(wks.weights))
+        by_k = {}
+        for c, v in plan.workload_variances().items():
+            by_k.setdefault(len(c), []).append(v)
+        assert sorted(got["ranges"]) == sorted(by_k)
+        for k, vs in by_k.items():
+            lo, hi, n = got["ranges"][k]
+            assert n == len(vs)
+            assert abs(lo - min(vs)) <= 1e-9 * min(vs)
+            assert abs(hi - max(vs)) <= 1e-9 * max(vs)
+        allv = [v for vs in by_k.values() for v in vs]
+        want = max(allv) / min(allv)
+        assert abs(got["spread"] - want) <= 1e-9 * want
+
+
+if __name__ == "__main__":
+    _reference_counts(sys.argv[1])

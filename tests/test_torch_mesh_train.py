@@ -39,7 +39,8 @@ outside and called inside reuses the no-mesh trace.  Float32 throughout.
   mesh.
 * ``train_loop(mesh=)``: resumed equals uninterrupted bit for bit, and its
   losses are within rel 1e-5 of ``train_loop()`` without a mesh.
-* DP-SGD on a mesh raises ``NotImplementedError``.
+
+DP-SGD on a mesh has its own file, ``tests/test_torch_mesh_dp.py``.
 """
 import dataclasses
 import datetime
@@ -166,7 +167,7 @@ def _rank_main(rank, world, store_path, wdir, out):
     from repro_torch.models import layers as L
     from repro_torch.models.layers import tree_paths
     from repro_torch.models.sharding import place
-    from repro_torch.train import (AdamWConfig, DPSGDConfig, apply_updates,
+    from repro_torch.train import (AdamWConfig, apply_updates,
                                    init_opt_state, make_eval_step,
                                    make_train_step)
     from repro_torch.train.checkpoint import CheckpointManager
@@ -317,18 +318,7 @@ def _rank_main(rank, world, store_path, wdir, out):
                              dp=None, mesh=mesh22, **first)
         _, tail = train_loop(cfg, ckpt_dir=f"{out}/loop_b", resume=True,
                              dp=None, mesh=mesh22, **LOOP)
-        raised = []
-        for call in (lambda: train_loop(cfg, ckpt_dir=f"{out}/loop_dp",
-                                        resume=False, dp=DPSGDConfig(),
-                                        mesh=mesh22, **LOOP),
-                     lambda: make_train_step(model, opt_cfg, dp=DPSGDConfig())):
-            try:
-                call()
-                raised.append(False)
-            except NotImplementedError:
-                raised.append(True)
-        save("loop", {"full": np.array(full_run), "resumed": np.array(head + tail),
-                      "dp_raises": np.array(raised)})
+        save("loop", {"full": np.array(full_run), "resumed": np.array(head + tail)})
     finally:
         dist.destroy_process_group()
 
@@ -596,11 +586,6 @@ def test_train_loop_on_a_mesh_resumes_bit_for_bit(runs):
     assert len(plain) == LOOP["steps"]
     assert np.all(np.abs(got["full"] - plain) <= REL * np.abs(plain))
 
-
-def test_dp_sgd_on_a_mesh_raises(runs):
-    """``train_loop(dp=..., mesh=...)`` and ``make_train_step(mesh model,
-    dp=...)`` raise NotImplementedError."""
-    assert np.all(_load(runs["port"] / "loop.npz")["dp_raises"])
 
 
 if __name__ == "__main__":

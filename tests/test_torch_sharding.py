@@ -201,16 +201,25 @@ def test_logical_is_a_no_op_on_plain_tensors_and_outside_a_mesh():
 @pytest.mark.parametrize("rules", [{"vocab": None}, {"kv_seq": ("data", "model")},
                                    {"batch": None}, {"expert_dff": None}])
 def test_mesh_regions_refuse_other_rules(rules):
-    """The regions' collectives are written for ``DEFAULT_RULES``; under a
-    rule set that maps any axis otherwise (the reference's dry-run
-    ``shape_rules`` among them) ``region`` and ``mixer_region`` raise
-    before they touch the mesh, and under the default rules they go on."""
+    """The regions refuse no rule set: each takes its mesh axes from the
+    active rules (the reference's dry-run ``shape_rules`` among them)
+    through ``rule_axes``, which gives every logical name the axes
+    ``_resolve`` maps it to on the mesh, major first, and () where it is
+    replicated; the default rules hold outside a context.  The guard
+    that refused other rules is gone."""
     fake = SimpleNamespace(mesh_dim_names=("data", "model"))
-    x = torch.ones(2, 3)
+
+    def axes(v):
+        return () if v is None else (v,) if isinstance(v, str) else tuple(v)
+
     with sharding.sharding_rules(fake, rules):
-        with pytest.raises(NotImplementedError, match="default sharding rules"):
-            sharding.region(lambda t: t, (x,), [(None, None)], [(None, None)])
-        with pytest.raises(NotImplementedError, match="default sharding rules"):
-            sharding.mixer_region(lambda p, t, **kw: (t, None), {}, x)
-    with sharding.sharding_rules(fake):
-        sharding.require_default_rules()
+        active = sharding.current_rules()
+        for name in sharding.DEFAULT_RULES:
+            want = sharding._resolve((name,), fake.mesh_dim_names, active)[0]
+            assert sharding.rule_axes(name) == axes(want), name
+        (name, value), = rules.items()
+        assert sharding.rule_axes(name) == axes(value)
+        assert sharding.batch_axis_names(fake) == sharding.rule_axes("batch")
+    assert sharding.rule_axes("vocab", fake) == ("model",)
+    assert sharding.batch_axis_names(fake) == ("data",)
+    assert not hasattr(sharding, "require_default_rules")

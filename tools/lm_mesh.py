@@ -7,6 +7,12 @@ every visible card (up to four): ``chip_smoke.py``'s ``[lm-mesh]`` and
     python3 tools/lm_mesh.py --depth 4 --mesh 2 2  # bf16 runs at (2, 2)
     python3 tools/lm_mesh.py --train              # [lm-mesh-train] runs
     python3 tools/lm_mesh.py --train-depth 1 2 3  # DeepSeek-V2 training cuts
+    python3 tools/lm_mesh.py --dp                 # the [lm-mesh-dp] phase
+
+``--dp`` runs ``chip_smoke.phase_lm_mesh_dp`` on every visible card (up
+to four): DP-SGD on a mesh, at (1, 4) and (2, 2) on four cards, and
+Qwen3-4B at published width and full depth trained by
+``train_loop(dp=..., mesh=(1, 4))``.
 
 ``--train`` on four cards: Qwen3-4B at published width and full depth
 (36 layers) trained by ``train_loop(mesh=)`` at (1, 4) with the launcher's
@@ -56,6 +62,8 @@ def main(argv=None):
                     help="the [lm-mesh-train] runs on every visible card")
     ap.add_argument("--train-depth", type=int, nargs="*", default=None,
                     help="layer counts of DeepSeek-V2 training runs at (1, N)")
+    ap.add_argument("--dp", action="store_true",
+                    help="the [lm-mesh-dp] phase on every visible card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tools/lm_mesh.py needs a CUDA device")
@@ -65,6 +73,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
     world = min(torch.cuda.device_count(), 4)
+    if args.dp:
+        return chip_smoke.phase_lm_mesh_dp(card, world)
     if args.train:
         return train(world)
     if args.train_depth:
