@@ -163,7 +163,8 @@ Phases, in order; any failure exits non-zero:
    no-mesh run's with 0 dropped pairs and the expert-parallel bodies
    counted (model axis > 1); at bf16 and capacity factor 1.25 prefill
    seconds, decode tokens/s, peak memory per rank, dropped pairs, NCCL
-   device ms of a decode step and all_to_all bytes.  On more than one card
+   device ms of a decode step, the next step's collective bytes (OpStats)
+   and all_to_all bytes.  On more than one card
    Qwen3-4B at published width (4 of 36 layers) runs the same parity gate
    on each mesh in both attention modes (DeepSeek-V2's MLA reads none).
    No kernel of the port runs here either.
@@ -191,10 +192,12 @@ Phases, in order; any failure exits non-zero:
    report; the fake step's FLOPs and collective counts equal the real
    step's.  No kernel of the port runs here.
 32. [dryrun] the dry run on fake tensors over a fake 256-rank process
-   group (repro_torch.launch.dryrun) for qwen3-4b train_4k and
-   deepseek-v2-236b decode_32k, in child processes on the host CPU started
-   with the smoke: both status ok, their analyze rows (the H100 SXM
-   datasheet row; counts, not measured times), the seconds the wait adds.
+   group (repro_torch.launch.dryrun) for qwen3-4b train_4k,
+   deepseek-v2-236b decode_32k and recurrentgemma-2b prefill_32k (its
+   RG-LRU loop counted from a few steps, exactly), in child processes on
+   the host CPU started with the smoke: each status ok, their analyze rows
+   (the H100 SXM datasheet row; counts, not measured times), the seconds
+   the wait for each cell adds.
 33. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
@@ -3484,7 +3487,8 @@ def _lm_mesh_rank(rank, world, store, job, out_path):
     its logits held against the no-mesh run's; then, for a bf16 run, at
     bf16 and the config's capacity factor: prefill seconds, decode
     tokens/s, peak memory, dropped pairs, NCCL device ms of one decode
-    step.  Rank 0 writes what it measured to ``out_path``."""
+    step and the collective bytes of one more (``OpStats``).  Rank 0
+    writes what it measured to ``out_path``."""
     import datetime
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -3587,6 +3591,8 @@ def _lm_mesh_rank(rank, world, store, job, out_path):
                 nccl = sum(ev.self_device_time_total for ev in kern
                            if "nccl" in ev.key.lower()) / 1e3
                 dev = sum(ev.self_device_time_total for ev in kern) / 1e3
+                coll = _collective_bytes(lambda: model.decode_step(
+                    tok, caches, LM_MESH_S + LM_MESH_STEPS + 1))
                 finite = bool(torch.isfinite(logits).all()
                               and torch.isfinite(cur).all())
                 st = moe_stats()
@@ -3602,6 +3608,7 @@ def _lm_mesh_rank(rank, world, store, job, out_path):
                     "card_gib": torch.cuda.get_device_properties(
                         torch.cuda.current_device()).total_memory / 2**30,
                     "nccl_ms": gathered(nccl), "device_ms": gathered(dev),
+                    "coll_bytes": gathered(coll),
                     "ep_dispatch": counts[0], "ep_replicated": counts[1],
                     "dense": counts[2], "dropped_prefill": counts[3],
                     "dropped_all": counts[4], "finite": finite,
@@ -3716,7 +3723,8 @@ def lm_mesh_print(report, gates=True):
               f"{b['card_gib']:.1f}; dropped pairs {b['dropped_prefill']:.0f} "
               f"in a prefill, {b['dropped_all']:.0f} in all; one decode step's "
               f"device ms per rank {[round(x, 3) for x in b['device_ms']]}, "
-              f"of it NCCL {[round(x, 3) for x in b['nccl_ms']]}; "
+              f"of it NCCL {[round(x, 3) for x in b['nccl_ms']]}; the next "
+              f"step's collective bytes per rank {_coll_line(b['coll_bytes'])}; "
               f"all_to_all bytes out of a rank per dispatch {b['a2a_bytes']:,}; "
               f"EP dispatch/replicated/dense calls {b['ep_dispatch']:.0f}/"
               f"{b['ep_replicated']:.0f}/{b['dense']:.0f}")
@@ -3754,8 +3762,8 @@ def phase_lm_mesh(card):
     DeepSeek-V2: prefill seconds, decode tokens/s, peak memory per rank,
     dropped pairs (each counted once over the mesh), one decode step's
     device ms and NCCL ms per rank (by kernel name, torch.profiler), the
-    bytes one prefill all_to_all moves out of a rank (cap1 x d x 2 B x
-    n_shards)."""
+    next decode step's collective bytes per rank (OpStats), the bytes one
+    prefill all_to_all moves out of a rank (cap1 x d x 2 B x n_shards)."""
     t_phase = time.perf_counter()
     world = min(torch.cuda.device_count(), 4)
     os.makedirs("build", exist_ok=True)
@@ -3853,6 +3861,35 @@ def _step_device_ms(step, state, batch):
                        if "nccl" in ev.key.lower()) / 1e3)
 
 
+def _collective_bytes(fn):
+    """The output-buffer bytes of each collective kind ``fn()`` issues on
+    this rank, as ``OpStats`` counts them."""
+    from repro_torch.roofline.op_stats import OpStats
+    with OpStats() as st:
+        fn()
+    torch.cuda.synchronize()
+    return st.stats()["collective_bytes"]
+
+
+def _coll_line(per_rank):
+    """Each rank's collective bytes in all (its all-gather bytes)."""
+    return (f"{[int(sum(c.values())) for c in per_rank]} (all-gather "
+            f"{[int(c['all-gather']) for c in per_rank]})")
+
+
+def _step_profile(step, state, batch):
+    """Two more steps on this rank: the first's device and NCCL ms
+    (:func:`_step_device_ms`), the second's collective bytes
+    (:func:`_collective_bytes`).  Returns (state, ms pair, bytes)."""
+    state, ms = _step_device_ms(step, state, batch)
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], batch)
+    coll = _collective_bytes(one)
+    return box[0], ms, coll
+
+
 def _leaf_errors(state, want, mesh):
     """The worst rel error (of each leaf's max over the whole tensor) of the
     mesh state's parameter and moment leaves against the no-mesh state's,
@@ -3881,7 +3918,8 @@ def _leaf_errors(state, want, mesh):
 def _lm_mesh_train_parity(spec, mesh):
     """Qwen3-4B (``spec['layers']`` deep, float32 compute) trained
     LM_MESH_TRAIN_STEPS steps on ``mesh`` with each remat of ``spec`` and
-    without a mesh on this rank's card, from one seed."""
+    without a mesh on this rank's card, from one seed; with ``profile``,
+    :func:`_step_profile` after each remat's steps."""
     from repro_torch.models import Model, transformer
     from repro_torch.train import AdamWConfig, make_train_step
     from repro_torch.train.train_step import init_train_state
@@ -3909,6 +3947,10 @@ def _lm_mesh_train_parity(spec, mesh):
             "losses": losses, "s": secs, "leaf_rel": err, "leaf": leaf,
             "loss_rel": max(abs(a - b) / abs(b)
                             for a, b in zip(losses, want_losses))}
+        if spec.get("profile"):
+            _, out["remat"][remat]["device_ms"], \
+                out["remat"][remat]["coll_bytes"] = _step_profile(
+                    step, state, batch)
         del model, state, step
         free_device_memory()
     del plain, want
@@ -3919,7 +3961,8 @@ def _lm_mesh_train_parity(spec, mesh):
 def _lm_mesh_train_moe(spec, mesh, shape, build):
     """DeepSeek-V2 (``spec['layers']`` deep, bf16, int8 moments, capacity
     factor 1.25) trained on ``mesh``: step seconds, losses, peak memory;
-    with ``profile`` one more step's device and NCCL ms; with ``save`` the
+    with ``profile`` one more step's device and NCCL ms and the collective
+    bytes of the next (:func:`_step_profile`); with ``save`` the
     state of layer group 0 but its routed experts saved sharded (rank 0
     writes) and restored bit for bit."""
     import torch.distributed as dist
@@ -3943,7 +3986,8 @@ def _lm_mesh_train_moe(spec, mesh, shape, build):
     state, out["losses"], out["s"] = _timed_steps(step, state, batch,
                                                   LM_MESH_TRAIN_STEPS)
     if spec.get("profile"):
-        state, out["device_ms"] = _step_device_ms(step, state, batch)
+        state, out["device_ms"], out["coll_bytes"] = _step_profile(
+            step, state, batch)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if spec.get("save"):
         def part(tree):
@@ -4009,7 +4053,8 @@ def _lm_mesh_train_loop(spec, mesh):
     batch = lm_mesh_train_batch(cfg)
     state, out["losses"], out["s"] = _timed_steps(step, state, batch,
                                                   LM_MESH_TRAIN_STEPS + 1)
-    state, out["device_ms"] = _step_device_ms(step, state, batch)
+    state, out["device_ms"], out["coll_bytes"] = _step_profile(
+        step, state, batch)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["finite"] = all(math.isfinite(v) for v in out["losses"] + losses)
     del model, state, step
@@ -4074,6 +4119,14 @@ def lm_mesh_train_print(report, gates=True):
                       f"{res['loss_rel']:.3e} (bound {LM_MESH_TRAIN_REL_LOSS}); "
                       f"worst parameter/moment leaf rel {res['leaf_rel']:.3e} "
                       f"({res['leaf']}; bound {LM_MESH_TRAIN_REL})")
+                if "device_ms" in res:
+                    per = [r["remat"][remat] for r in ranks]
+                    print(f"{tag} remat '{remat}': one step's device ms per "
+                          f"rank {[round(p['device_ms'][0], 2) for p in per]},"
+                          f" of it NCCL "
+                          f"{[round(p['device_ms'][1], 2) for p in per]}; the "
+                          f"next step's collective bytes per rank "
+                          f"{_coll_line([p['coll_bytes'] for p in per])}")
                 if gates:
                     assert res["loss_rel"] < LM_MESH_TRAIN_REL_LOSS, res
                     assert res["leaf_rel"] < LM_MESH_TRAIN_REL, res
@@ -4094,7 +4147,9 @@ def lm_mesh_train_print(report, gates=True):
         if "device_ms" in r0:
             line += (f"; one step's device ms per rank "
                      f"{[round(r['device_ms'][0], 2) for r in ranks]}, of it "
-                     f"NCCL {[round(r['device_ms'][1], 2) for r in ranks]}")
+                     f"NCCL {[round(r['device_ms'][1], 2) for r in ranks]}; "
+                     f"the next step's collective bytes per rank "
+                     f"{_coll_line([r['coll_bytes'] for r in ranks])}")
         if run["kind"] == "moe" and r0["a2a_bytes"]:
             line += (f"; all_to_all bytes out of a rank per dispatch "
                      f"{r0['a2a_bytes']:,}, {r0['a2a_per_step']} activation "
@@ -4491,12 +4546,13 @@ def phase_lm_mesh_dp(card, world=None):
 
 # ---------------------------------------------------------------------------
 # [dryrun]: the port's dry run on fake tensors over a fake process group of
-# 256 ranks (repro_torch.launch.dryrun), two single-pod cells in child
+# 256 ranks (repro_torch.launch.dryrun), three single-pod cells in child
 # processes on the host CPU (no card: CUDA_VISIBLE_DEVICES is empty and the
 # fake tensors sit on the CPU device), started with the smoke and read at its
 # end; their records scored by repro_torch.roofline.analyze with the H100 SXM
 # datasheet row (counts, not measured times).
-DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
+                ("recurrentgemma-2b", "prefill_32k"))
 DRYRUN_DIR = os.path.join("build", "dryrun_torch")
 
 
@@ -4531,6 +4587,7 @@ def phase_dryrun(started, timeout=900):
     t0 = time.perf_counter()
     cells = []
     for arch, shape, log, p in procs:
+        t_cell = time.perf_counter()
         try:
             p.wait(timeout=max(timeout - (time.perf_counter() - t_start), 1))
         finally:
@@ -4538,6 +4595,8 @@ def phase_dryrun(started, timeout=900):
                 p.kill()
                 p.wait()
             log.close()
+        print(f"[dryrun] {arch} {shape}: {time.perf_counter() - t_cell:.1f} s "
+              f"of waiting added by this cell")
         with open(os.path.join(DRYRUN_DIR,
                                f"{arch}__{shape}__single.json")) as f:
             rec = json.load(f)

@@ -15,13 +15,16 @@ mesh would execute, and :mod:`repro_torch.roofline.analyze` scores them
 with a device row (datasheet rates, not measured times).
 
     python -m repro_torch.launch.dryrun --arch qwen3-4b --shape decode_32k --mesh single
-    python -m repro_torch.launch.dryrun --all          (one subprocess per cell)
+    python -m repro_torch.launch.dryrun --all [--jobs N]   (one process per
+        cell, N at a time; one pod and two pods unless --mesh names one)
 
 Each cell writes ``artifacts/dryrun_torch/{arch}__{shape}__{mesh}.json``
 with ``run_cell``'s fields.  Where the reference has no counterpart:
 ``lower_s``/``compile_s`` become ``trace_s`` (the seconds the fake step
-took); ``cost_analysis`` and ``hlo_chars`` are not written; ``--save-hlo``
-is left out (there is no HLO; ``op_stats`` holds the counts).  The memory
+took; the per-token loops of RG-LRU and sLSTM are counted from a few steps,
+exactly, as ``hlo_stats`` scales a loop body by its trip count:
+:func:`~repro_torch.models.loops.token_loop`); ``cost_analysis`` and
+``hlo_chars`` are not written; ``--save-hlo`` is left out (there is no HLO; ``op_stats`` holds the counts).  The memory
 entries: ``argument_size_in_bytes`` is this rank's shard of every input
 (the batch rows the rules give it), ``output_size_in_bytes`` its share of
 every output, and ``temp_size_in_bytes`` the peak of the bytes the step
@@ -45,6 +48,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.distributed as dist
@@ -195,10 +199,12 @@ def build_step(cfg: ModelConfig, kind: str, B: int, S: int, mesh, rules, *,
 
 def count_step(cfg: ModelConfig, kind: str, B: int, S: int, mesh, rules, *,
                microbatches: int = 1, cache_dtype: str = "bfloat16",
-               device: str = "cuda") -> dict:
+               device: str = "cuda", sample_loops: bool = True) -> dict:
     """A record's measured fields for one fake step on ``mesh`` (a mesh of
     a fake process group): ``memory_analysis``, ``op_stats``, the
-    collectives and ``trace_s``."""
+    collectives and ``trace_s``.  The per-token loops are counted from a
+    few steps (``OpStats(sample_loops=True)``), exactly; ``sample_loops``
+    False runs every step."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.roofline.op_stats import OpStats
     t0 = time.time()
@@ -208,7 +214,7 @@ def count_step(cfg: ModelConfig, kind: str, B: int, S: int, mesh, rules, *,
                                     cache_dtype=cache_dtype, device=device)
         with sharding_rules(mesh, rules):
             arg_bytes = _local_bytes(args, mesh, B)
-            mode = OpStats()
+            mode = OpStats(sample_loops=sample_loops)
             with mode:
                 out = run()
             out_bytes = _local_bytes(out, mesh, B)
@@ -318,6 +324,30 @@ def cell_path(out_dir: str, arch: str, shape: str, mesh: str, suffix: str = ""):
     return os.path.join(out_dir, f"{arch}__{shape}__{mesh}{suffix}.json")
 
 
+def _run_child(args, a: str, s: str, m: str):
+    """One cell of ``--all`` in its own process, skipped when its record is
+    already ``ok`` or ``skipped``; a child past ``--timeout`` is recorded
+    as ``timeout``."""
+    path = cell_path(args.out, a, s, m, args.suffix)
+    if os.path.exists(path):
+        with open(path) as fh:
+            if json.load(fh).get("status") in ("ok", "skipped"):
+                return
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", a, "--shape", s, "--mesh", m,
+           "--out", args.out, "--cache-dtype", args.cache_dtype,
+           "--microbatches", str(args.microbatches),
+           "--remat-policy", args.remat_policy,
+           "--attn-shard", args.attn_shard, "--suffix", args.suffix]
+    if args.device:
+        cmd += ["--device", args.device]
+    try:
+        subprocess.run(cmd, timeout=args.timeout, check=False)
+    except subprocess.TimeoutExpired:
+        with open(path, "w") as f:
+            json.dump({"arch": a, "shape": s, "mesh": m, "status": "timeout"}, f)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=list(ARCH_IDS))
@@ -326,6 +356,8 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=ARTIFACT_DIR)
     ap.add_argument("--timeout", type=int, default=2400)
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells of --all run at once, one process each")
     ap.add_argument("--cache-dtype", default="bfloat16",
                     choices=["bfloat16", "float8_e4m3fn"])
     ap.add_argument("--microbatches", type=int, default=0)
@@ -341,29 +373,9 @@ def main(argv=None):
 
     if args.all:
         meshes = (args.mesh,) if "--mesh" in (argv or sys.argv) else ("single", "multi")
-        for a in ARCH_IDS:
-            for s in SHAPES:
-                for m in meshes:
-                    path = cell_path(args.out, a, s, m, args.suffix)
-                    if os.path.exists(path):
-                        with open(path) as fh:
-                            if json.load(fh).get("status") in ("ok", "skipped"):
-                                continue
-                    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                           "--arch", a, "--shape", s, "--mesh", m,
-                           "--out", args.out, "--cache-dtype", args.cache_dtype,
-                           "--microbatches", str(args.microbatches),
-                           "--remat-policy", args.remat_policy,
-                           "--attn-shard", args.attn_shard,
-                           "--suffix", args.suffix]
-                    if args.device:
-                        cmd += ["--device", args.device]
-                    try:
-                        subprocess.run(cmd, timeout=args.timeout, check=False)
-                    except subprocess.TimeoutExpired:
-                        with open(path, "w") as f:
-                            json.dump({"arch": a, "shape": s, "mesh": m,
-                                       "status": "timeout"}, f)
+        cells = [(a, s, m) for a in ARCH_IDS for s in SHAPES for m in meshes]
+        with ThreadPoolExecutor(max(args.jobs, 1)) as pool:
+            list(pool.map(lambda c: _run_child(args, *c), cells))
         return
 
     if not (args.arch and args.shape):

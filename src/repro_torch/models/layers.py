@@ -12,16 +12,25 @@ Attention stays plain torch ops, as the reference's is jnp, not Pallas.
 On a mesh (DTensor inputs) the attention blocks run as regions over local
 shards with explicit collectives over the mesh axes the active rules give
 (``model`` under the default rules), where the reference puts its
-logical-axis constraints: 'seq' mode splits the query rows
-(``seq_shard``) and gathers the output rows; 'heads' mode
-(:func:`set_attn_sharding`) pads the GQA groups to G' (:func:`_heads_padding`),
-repeats K/V, splits the padded heads (``heads_shard``) and adds the
-partial outputs; a decode step writes its slot on the rank that holds it
-and runs split-K over the cache length (``kv_seq``, over (``data``,
-``model``) under the dry run's ``long_500k`` rules), its softmax max and
-sums taken across ranks.  :func:`swiglu_apply` shards d_ff over ``dff``.  In training the 'seq' output gather hands each rank its rows'
-gradient, the 'heads' and SwiGLU all-reduces pass theirs through, and the
-inputs' gradients leave the regions partial over ``model``; the decode
+logical-axis constraints.  Each rank holds its ``qkv`` columns of the
+q/k/v projections and its rows of ``wo`` and projects its batch rows with
+them; the activations move, never the weights.  'seq' mode exchanges q
+from columns to this rank's query rows (``seq_shard``, all heads), gathers
+K/V whole, attends (sliding-window attention over the rows' windows only)
+and exchanges the output rows back to columns; 'heads' mode
+(:func:`set_attn_sharding`) pads the GQA groups to G'
+(:func:`_heads_padding`), exchanges q to the real heads among this rank's
+padded heads (``heads_shard``) and repeats K/V to them; either way the
+output columns meet this rank's rows of ``wo`` and the partial outputs
+are added over ``model``.  A decode step gathers its (B, 1, ·)
+projections, writes its slot on the rank that holds it and runs split-K
+over the cache length (``kv_seq``, over (``data``, ``model``) under the
+dry run's ``long_500k`` rules), its softmax max and sums taken across
+ranks.  MLA keeps ``w_dkv`` whole and, in decode, its absorbed form.
+:func:`swiglu_apply` shards d_ff over ``dff``.  In training every
+exchange sends its gradient back the way it came, the all-reduces pass
+theirs through, the inputs' gradients leave the regions partial over
+``model`` and the split weights' as their shards; the decode
 paths are not trained.  Two behaviours differ from the reference on purpose:
 
 * :func:`blockwise_attention` masks its KV padding in causal mode too (the
@@ -45,9 +54,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 
 from .config import torch_dtype
-from .sharding import (ACT, all_gather_dim, all_reduce, axes_bounds, axis_rank,
-                       axis_size, current_mesh, is_dtensor, mixer_region,
-                       region, rule_axes)
+from .sharding import (ACT, all_reduce, axes_bounds, axis_rank, axis_size,
+                       current_mesh, exchange, is_dtensor, mixer_region,
+                       one_axis, rank_chunks, region, rule_axes)
 
 NEG_POS = -(10 ** 9)   # position of a KV pad slot: before every query
 
@@ -205,11 +214,14 @@ def blockwise_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
-def local_attention(q, k, v, q_pos, kv_pos, *, window: int):
+def local_attention(q, k, v, q_pos, kv_pos, *, window: int, prev=None):
     """Chunked sliding-window causal attention: O(S·2W) compute and memory.
 
     The sequence is cut into W-sized chunks; chunk i attends to chunks
-    {i-1, i} with an exact (q_pos - kv_pos) ∈ [0, W) mask.
+    {i-1, i} with an exact (q_pos - kv_pos) ∈ [0, W) mask.  ``prev``: the
+    (K, V, positions) of the W slots before the first chunk, which it
+    attends to as well (a mesh rank's rows past the start of the
+    sequence); none by default.
     """
     B, S0, H, dh = q.shape
     Hkv = k.shape[2]
@@ -228,14 +240,20 @@ def local_attention(q, k, v, q_pos, kv_pos, *, window: int):
     qc = q.reshape(B, nc, W, Hkv, G, dh)
     kc = k.reshape(B, nc, W, Hkv, dh)
     vc = v.reshape(B, nc, W, Hkv, dh)
-    kprev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
-    vprev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    if prev is None:
+        k0, v0 = torch.zeros_like(kc[:, :1]), torch.zeros_like(vc[:, :1])
+    else:
+        k0, v0 = (t.reshape(B, 1, W, Hkv, dh) for t in prev[:2])
+    kprev = torch.cat([k0, kc[:, :-1]], dim=1)
+    vprev = torch.cat([v0, vc[:, :-1]], dim=1)
     k2 = torch.cat([kprev, kc], dim=2)               # (B, nc, 2W, Hkv, dh)
     v2 = torch.cat([vprev, vc], dim=2)
     s = torch.einsum("bcwkgd,bctkd->bckgwt", qc.float(), k2.float()) * scale
     qp = q_pos.reshape(nc, W)
     kp = kv_pos.reshape(nc, W)
-    kp_prev = torch.cat([torch.full_like(kp[:1], NEG_POS), kp[:-1]], dim=0)
+    p0 = torch.full_like(kp[:1], NEG_POS) if prev is None \
+        else prev[2].reshape(1, W)
+    kp_prev = torch.cat([p0, kp[:-1]], dim=0)
     kp2 = torch.cat([kp_prev, kp], dim=1)
     diff = qp[:, :, None] - kp2[:, None, :]           # (nc, W, 2W)
     mask = (diff >= 0) & (diff < W)
@@ -333,6 +351,12 @@ def _heads_padding(H: int, Hkv: int, msize: int):
     return gp if gp / G <= 1.25 else None
 
 
+ATTN_REGION_AXES = {"wq": (None, "qkv"), "wk": (None, "qkv"),
+                    "wv": (None, "qkv"), "wo": ("qkv", None),
+                    "bq": ("qkv",), "bk": ("qkv",), "bv": ("qkv",),
+                    "q_norm": (None,), "k_norm": (None,)}
+
+
 def attn_apply(p, x, *, cfg, mode: str, cache=None, pos=None,
                local: bool = False, mesh=None, kv_len=None):
     """x: (B, S, D).  Returns (y, new_cache); a decode step writes its K/V
@@ -340,17 +364,23 @@ def attn_apply(p, x, *, cfg, mode: str, cache=None, pos=None,
 
     On DTensors (a model on a mesh) it runs as a region over local shards
     (:func:`~repro_torch.models.sharding.mixer_region`), which calls it
-    back with ``mesh`` set: then ``p`` holds whole weights, ``x`` this
-    rank's batch rows, and a decode step's ``cache`` this rank's slots of
-    a cache of ``kv_len`` slots split over ``model``."""
+    back with ``mesh`` set: then ``p`` holds this rank's columns of
+    ``wq``/``wk``/``wv`` (and the biases) and its rows of ``wo`` (split
+    over ``qkv``), ``x`` this rank's batch rows, and a decode step's
+    ``cache`` this rank's slots of a cache of ``kv_len`` slots split over
+    ``kv_seq`` (:func:`_attn_on_mesh`)."""
     if is_dtensor(x):
         inplace = ("k", "v") if mode == "decode" else ()
-        return mixer_region(attn_apply, p, x, cache=cache,
-                            cache_axes=KV_CACHE_AXES, inplace=inplace,
-                            place=False, split=_attn_split(cfg, mode, local),
+        return mixer_region(attn_apply, p, x, axes=ATTN_REGION_AXES,
+                            cache=cache, cache_axes=KV_CACHE_AXES,
+                            inplace=inplace, place=False,
+                            split=_attn_split(cfg, mode, local),
                             cfg=cfg, mode=mode, pos=pos, local=local,
                             kv_len=None if cache is None
                             else cache["k"].shape[1])
+    if mesh is not None:
+        return _attn_on_mesh(p, x, cfg=cfg, mode=mode, cache=cache, pos=pos,
+                             local=local, mesh=mesh, kv_len=kv_len)
     B, S, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = torch_dtype(cfg.compute_dtype)
@@ -374,26 +404,16 @@ def attn_apply(p, x, *, cfg, mode: str, cache=None, pos=None,
             at = torch.tensor([pos], device=x.device)
             q = rope(q, at, cfg.rope_theta)
             k = rope(k, at, cfg.rope_theta)
-        window = cfg.local_window if local else 0
-        if mesh is not None:
-            lo = _write_slot_split(cache["k"], k, pos, kv_len, mesh)
-            _write_slot_split(cache["v"], v, pos, kv_len, mesh)
-            o = _decode_attention_split(q, cache["k"], cache["v"], pos, lo,
-                                        mesh, window=window)
-            return (o.reshape(B, 1, H * dh) @ p["wo"].to(cdt)).to(x.dtype), cache
         k_cache = _write_slot(cache["k"], k, pos)
         v_cache = _write_slot(cache["v"], v, pos)
-        o = decode_attention(q, k_cache, v_cache, pos, window=window)
+        o = decode_attention(q, k_cache, v_cache, pos,
+                             window=cfg.local_window if local else 0)
         new_cache = {"k": k_cache, "v": v_cache}
     else:
         positions = torch.arange(S, device=x.device)
         if cfg.rope_theta:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
-        if mesh is not None:
-            return _attn_prefill_mesh(p, q, k, v, positions, cfg=cfg, cdt=cdt,
-                                      mode=mode, local=local, mesh=mesh,
-                                      out_dtype=x.dtype)
         if local:
             o = local_attention(q, k, v, positions, positions,
                                 window=cfg.local_window)
@@ -415,6 +435,11 @@ def mla_defs(cfg) -> Dict[str, Any]:
     }
 
 
+MLA_REGION_AXES = {"wq": (None, "qkv"), "w_dkv": (None, "lora"),
+                   "w_uk": ("lora", "qkv"), "w_uv": ("lora", "qkv"),
+                   "wo": ("qkv", None)}
+
+
 def mla_apply(p, x, *, cfg, mode: str, cache=None, pos=None, mesh=None,
               kv_len=None):
     """DeepSeek-style Multi-head Latent Attention with a compressed KV cache.
@@ -422,16 +447,22 @@ def mla_apply(p, x, *, cfg, mode: str, cache=None, pos=None, mesh=None,
     Train/prefill: decompress K/V and run blockwise attention.  Decode: the
     absorbed form, scores and values in the rank-r latent space against a
     cache of c_kv (B, T, r) only.  On DTensors it runs as a region over
-    local shards, as :func:`attn_apply` does.
+    local shards, as :func:`attn_apply` does, with ``wq``, ``w_uk``,
+    ``w_uv`` and ``wo`` split over ``qkv`` and ``w_dkv`` whole
+    (:func:`_mla_on_mesh`).
     """
     if is_dtensor(x):
         inplace = ("c_kv",) if mode == "decode" else ()
-        return mixer_region(mla_apply, p, x, cache=cache,
-                            cache_axes=MLA_CACHE_AXES, inplace=inplace,
-                            place=False, split=_attn_split(cfg, mode, True),
+        return mixer_region(mla_apply, p, x, axes=MLA_REGION_AXES,
+                            cache=cache, cache_axes=MLA_CACHE_AXES,
+                            inplace=inplace, place=False,
+                            split=_attn_split(cfg, mode, True),
                             cfg=cfg, mode=mode, pos=pos,
                             kv_len=None if cache is None
                             else cache["c_kv"].shape[1])
+    if mesh is not None:
+        return _mla_on_mesh(p, x, cfg=cfg, mode=mode, cache=cache, pos=pos,
+                            mesh=mesh, kv_len=kv_len)
     B, S, D = x.shape
     H, dh, r = cfg.n_heads, cfg.head_dim, cfg.kv_lora_rank
     cdt = torch_dtype(cfg.compute_dtype)
@@ -440,38 +471,23 @@ def mla_apply(p, x, *, cfg, mode: str, cache=None, pos=None, mesh=None,
     c_kv = xq @ p["w_dkv"].to(cdt)                          # (B, S, r)
 
     if mode == "decode":
-        lo = 0
-        if mesh is None:
-            c_cache = _write_slot(cache["c_kv"], c_kv, pos)
-        else:
-            c_cache = cache["c_kv"]
-            lo = _write_slot_split(c_cache, c_kv, pos, kv_len, mesh)
+        c_cache = _write_slot(cache["c_kv"], c_kv, pos)
         c_comp = c_cache.to(cdt)
         wuk = p["w_uk"].to(cdt).reshape(r, H, dh)
         wuv = p["w_uv"].to(cdt).reshape(r, H, dh)
         q_lat = torch.einsum("bshd,rhd->bshr", q, wuk)      # absorb W_uk into q
         s = torch.einsum("bshr,btr->bhst", q_lat.float(),
                          c_comp.float()) / math.sqrt(dh)
-        idx = torch.arange(lo, lo + c_cache.shape[1], device=x.device)
+        idx = torch.arange(c_cache.shape[1], device=x.device)
         s = s.masked_fill(~(idx <= pos), -math.inf)
-        if mesh is None:
-            pr = torch.softmax(s, dim=-1)
-            o_lat = torch.einsum("bhst,btr->bshr", pr.to(cdt), c_comp)
-        else:     # split-K: this rank's slots, the softmax across ranks
-            pr = _split_softmax(s, mesh)
-            o_lat = all_reduce(torch.einsum("bhst,btr->bshr", pr.to(cdt),
-                                            c_comp), mesh, rule_axes("kv_seq"))
+        pr = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", pr.to(cdt), c_comp)
         o = torch.einsum("bshr,rhd->bshd", o_lat, wuv)
         new_cache = {"c_kv": c_cache}
     else:
         k = (c_kv @ p["w_uk"].to(cdt)).reshape(B, S, H, dh)
         v = (c_kv @ p["w_uv"].to(cdt)).reshape(B, S, H, dh)
         positions = torch.arange(S, device=x.device)
-        if mesh is not None:
-            y, _ = _attn_prefill_mesh(p, q, k, v, positions, cfg=cfg, cdt=cdt,
-                                      mode=mode, local=False, mesh=mesh,
-                                      out_dtype=x.dtype, heads_mode=False)
-            return y, ({"c_kv": c_kv} if mode == "prefill" else None)
         o = blockwise_attention(q, k, v, positions, positions, causal=True)
         new_cache = {"c_kv": c_kv} if mode == "prefill" else None
     y = o.reshape(B, S, H * dh) @ p["wo"].to(cdt)
@@ -588,54 +604,239 @@ def _heads_mode(H: int, Hkv: int, seq_only: bool, mesh):
 
 def _attn_split(cfg, mode: str, seq_only: bool):
     """The mesh axes whose ranks do different work in an attention region:
-    the ``kv_seq`` rule's in a decode step, else the ``heads_shard`` rule's
-    in 'heads' mode and the ``seq_shard`` rule's in 'seq' mode."""
-    if mode == "decode":
-        return rule_axes("kv_seq")
+    the ``qkv`` rule's (each rank's projection columns), with the
+    ``kv_seq`` rule's in a decode step, else the ``heads_shard`` rule's in
+    'heads' mode and the ``seq_shard`` rule's in 'seq' mode."""
     mesh = current_mesh()
-    gp = _heads_mode(cfg.n_heads, cfg.n_kv_heads, seq_only, mesh)
-    return rule_axes("heads_shard" if gp else "seq_shard", mesh)
+    if mode == "decode":
+        work = rule_axes("kv_seq", mesh)
+    else:
+        gp = _heads_mode(cfg.n_heads, cfg.n_kv_heads, seq_only, mesh)
+        work = rule_axes("heads_shard" if gp else "seq_shard", mesh)
+    return tuple(dict.fromkeys(rule_axes("qkv", mesh) + work))
 
 
-def _attn_prefill_mesh(p, q, k, v, positions, *, cfg, cdt, mode, local, mesh,
-                       out_dtype, heads_mode=True):
-    """Prefill/train attention on this rank's batch rows, split over
-    ``model`` as the reference constrains it.
+def _same_axis(mesh, name: str, qa):
+    """Raise unless rule ``name`` (query rows, heads) splits over the
+    projections' ``qkv`` axis ``qa`` (or nothing): the regions exchange
+    between the two splits over one mesh axis."""
+    axis = one_axis(name, mesh)
+    if axis and axis != qa:
+        raise ValueError(f"attention splits {name!r} over {axis} and its "
+                         f"projections over {qa}; the regions exchange "
+                         f"between them over one mesh axis")
 
-    'heads' mode (non-local attention, ``ATTN_SHARDING`` 'heads' and a
-    padding within 25%): the GQA groups padded to G' with zero queries, K/V
-    repeated to Hkv·G' heads, this rank's contiguous share of the padded
-    heads attended, its rows of the padded ``wo`` applied and the partial
-    outputs added over ``model``.  ``wo`` is padded group by group, the
-    layout the padded queries have.  'seq' mode: this rank's chunk of
-    query rows against all keys (``seq_shard``), the output rows gathered
-    over ``model``.  Returns (y, the unrepeated K/V as the prefill cache).
-    """
-    B, S, H, dh = q.shape
-    Hkv = k.shape[2]
-    new_cache = {"k": k, "v": v} if mode == "prefill" else None
+
+def _gather_cols(t, cols, mesh, axis):
+    """The whole last dim of ``t`` on every rank, from each rank's columns
+    ``cols[r]`` (backward: each rank's columns of the summed gradient)."""
+    return exchange(t, mesh, axis, -1, cols, -1, [(0, cols[-1][1])] * len(cols))
+
+
+def _real_heads(p0: int, p1: int, G: int, gp: int) -> Tuple[int, int]:
+    """The real heads [ra, rb) among the padded heads [p0, p1) of 'heads'
+    mode (GQA groups of G padded to gp): a contiguous run, since padding
+    only inserts heads."""
+    def real_before(ph):
+        return (ph // gp) * G + min(ph % gp, G)
+    return real_before(p0), real_before(p1)
+
+
+def _local_rows(q, k, v, positions, lo: int, hi: int, W: int):
+    """Sliding-window attention of the query rows [lo, hi) (``q``) against
+    the whole K/V: :func:`local_attention` over those rows, the W slots
+    before ``lo`` (padded where ``lo`` < W) as the first chunk's
+    predecessor, so each row meets its window and no more."""
+    a = max(lo - W, 0)
+    pad = W - (lo - a)
+    prev = (F.pad(k[:, a:lo], (0, 0, 0, 0, pad, 0)),
+            F.pad(v[:, a:lo], (0, 0, 0, 0, pad, 0)),
+            F.pad(positions[a:lo], (pad, 0), value=NEG_POS))
+    return local_attention(q, k[:, lo:hi], v[:, lo:hi], positions[lo:hi],
+                           positions[lo:hi], window=W, prev=prev)
+
+
+def _attn_prefill_mesh(q, k, v, *, prep, qcols, kcols, wo, cfg, cdt, local,
+                       mesh, axis, out_dtype, heads_mode=True):
+    """Prefill/train attention from this rank's projection columns ``q``
+    (``qcols``), ``k``, ``v`` (``kcols``), each (B, S, ·), split over
+    ``axis`` as the reference constrains it.  K/V are gathered whole.
+    ``prep(q, k, q_pos, kv_pos)`` turns the exchanged projections into
+    heads (qk-norm, RoPE).
+
+    'seq' mode: ``q`` is exchanged from columns to this rank's chunk of
+    query rows (``seq_shard``, all heads: the reference's
+    ``("batch", "seq_shard", "heads", None)``), attended against all keys,
+    and the output rows exchanged back to columns.  'heads' mode
+    (non-local attention, ``ATTN_SHARDING`` 'heads' and a padding within
+    25%): the GQA groups padded to G' with zero queries; ``q`` exchanged to
+    the real heads among this rank's padded heads, K/V repeated to them,
+    the padded heads attended and the real heads' outputs exchanged back
+    to columns.  Either way this rank's output columns meet its rows of
+    ``wo`` and the partial outputs are added over ``axis``.  Returns (y,
+    the unrepeated K/V whole as the prefill cache)."""
+    B, S = q.shape[:2]
+    H, dh = cfg.n_heads, cfg.head_dim
+    Hkv = kcols[-1][1] // dh            # MLA decompresses K/V to H heads
+    me = axis_rank(mesh, axis) if axis else 0
+    positions = torch.arange(S, device=q.device)
+    k = _gather_cols(k, kcols, mesh, axis)
+    v = _gather_cols(v, kcols, mesh, axis).reshape(B, S, Hkv, dh)
     gp = _heads_mode(H, Hkv, local or not heads_mode, mesh)
-    axes = rule_axes("heads_shard" if gp else "seq_shard", mesh)
-    msize, rank = axis_size(mesh, axes), axis_rank(mesh, axes)
-    if gp is not None:
-        G = H // Hkv
-        Hp = Hkv * gp
-        qp = F.pad(q.reshape(B, S, Hkv, G, dh), (0, 0, 0, gp - G)) \
-            .reshape(B, S, Hp, dh)
-        kp = torch.repeat_interleave(k, gp, dim=2)
-        vp = torch.repeat_interleave(v, gp, dim=2)
-        hs = Hp // msize
-        h0 = rank * hs
-        o = blockwise_attention(qp[:, :, h0:h0 + hs], kp[:, :, h0:h0 + hs],
-                                vp[:, :, h0:h0 + hs], positions, positions,
-                                causal=True)
-        wo = F.pad(p["wo"].to(cdt).reshape(Hkv, G, dh, -1),
-                   (0, 0, 0, 0, 0, gp - G)).reshape(Hp, dh, -1)
-        y = o.reshape(B, S, hs * dh) @ wo[h0:h0 + hs].reshape(hs * dh, -1)
-        return all_reduce(y, mesh, axes).to(out_dtype), new_cache
-    lo, hi = axes_bounds(S, mesh, axes)
-    o = blockwise_attention(q[:, lo:hi], k, v, positions[lo:hi], positions,
-                            causal=True,
-                            window=cfg.local_window if local else 0)
-    y = o.reshape(B, hi - lo, H * dh) @ p["wo"].to(cdt)
-    return all_gather_dim(y, 1, mesh, axes, S).to(out_dtype), new_cache
+    if gp is None:
+        _same_axis(mesh, "seq_shard", axis)
+        rows = rank_chunks(S, mesh, axis)
+        lo, hi = rows[me]
+        q = exchange(q, mesh, axis, -1, qcols, 1, rows)
+        q, k = prep(q, k, positions[lo:hi], positions)
+        if local:
+            o = _local_rows(q, k, v, positions, lo, hi, cfg.local_window)
+        else:
+            o = blockwise_attention(q, k, v, positions[lo:hi], positions,
+                                    causal=True)
+        o = exchange(o.reshape(B, hi - lo, H * dh), mesh, axis, 1, rows, -1,
+                     qcols)
+    else:
+        _same_axis(mesh, "heads_shard", axis)
+        G, m = H // Hkv, len(qcols)
+        hs = Hkv * gp // m
+        spans = [_real_heads(r * hs, (r + 1) * hs, G, gp) for r in range(m)]
+        ra, rb = spans[me]
+        real = [(a * dh, b * dh) for a, b in spans]
+        q = exchange(q, mesh, axis, -1, qcols, -1, real)
+        q, k = prep(q, k, positions, positions)
+        own = range(me * hs, (me + 1) * hs)
+        qi = [(ph // gp) * G + ph % gp - ra if ph % gp < G else rb - ra
+              for ph in own]
+        ki = [ph // gp for ph in own]
+        qp = torch.cat([q, q.new_zeros(B, S, 1, dh)], dim=2)[:, :, qi]
+        o = blockwise_attention(qp, k[:, :, ki], v[:, :, ki], positions,
+                                positions, causal=True)
+        keep = [i for i, ph in enumerate(own) if ph % gp < G]
+        o = exchange(o[:, :, keep].reshape(B, S, (rb - ra) * dh), mesh, axis,
+                     -1, real, -1, qcols)
+    y = all_reduce(o @ wo.to(cdt), mesh, axis).to(out_dtype)
+    return y, {"k": k, "v": v}
+
+
+def _attn_on_mesh(p, x, *, cfg, mode, cache, pos, local, mesh, kv_len):
+    """:func:`attn_apply` on this rank's batch rows and its ``qkv`` shard of
+    the projections.  Each rank projects with its own columns of
+    ``wq``/``wk``/``wv``; the activations move instead of the weights.
+    A decode step gathers the (B, 1, ·) projections over ``qkv``, writes
+    its slot on the rank that holds it and runs split-K over ``kv_seq``;
+    prefill and training run :func:`_attn_prefill_mesh`.  Qwen3-4B's 8 KV
+    heads do not divide a 16-way axis, so the split runs along the
+    flattened columns and the head math (qk-norm, RoPE) after the
+    exchange, the reference's layout."""
+    B, S, D = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = torch_dtype(cfg.compute_dtype)
+    axis = one_axis("qkv", mesh)
+    me = axis_rank(mesh, axis) if axis else 0
+    qcols = rank_chunks(H * dh, mesh, axis)
+    kcols = rank_chunks(Hkv * dh, mesh, axis)
+    xq = x.to(cdt)
+    q = xq @ p["wq"].to(cdt)
+    k = xq @ p["wk"].to(cdt)
+    v = xq @ p["wv"].to(cdt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+
+    def prep(q, k, q_pos, kv_pos):
+        q = q.reshape(B, q.shape[1], -1, dh)
+        k = k.reshape(B, k.shape[1], Hkv, dh)
+        if cfg.qk_norm:
+            q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if cfg.rope_theta:
+            q = rope(q, q_pos, cfg.rope_theta)
+            k = rope(k, kv_pos, cfg.rope_theta)
+        return q, k
+
+    if mode == "decode":
+        at = torch.tensor([pos], device=x.device)
+        q, k = prep(_gather_cols(q, qcols, mesh, axis),
+                    _gather_cols(k, kcols, mesh, axis), at, at)
+        v = _gather_cols(v, kcols, mesh, axis).reshape(B, 1, Hkv, dh)
+        lo = _write_slot_split(cache["k"], k, pos, kv_len, mesh)
+        _write_slot_split(cache["v"], v, pos, kv_len, mesh)
+        o = _decode_attention_split(q, cache["k"], cache["v"], pos, lo, mesh,
+                                    window=cfg.local_window if local else 0)
+        c0, c1 = qcols[me]         # this rank's columns meet its wo rows
+        y = o.reshape(B, 1, H * dh)[..., c0:c1] @ p["wo"].to(cdt)
+        return all_reduce(y, mesh, axis).to(x.dtype), cache
+    y, kv = _attn_prefill_mesh(q, k, v, prep=prep, qcols=qcols, kcols=kcols,
+                               wo=p["wo"], cfg=cfg, cdt=cdt, local=local,
+                               mesh=mesh, axis=axis, out_dtype=x.dtype)
+    return y, (kv if mode == "prefill" else None)
+
+
+def _pad_heads(t, c0: int, c1: int, dh: int):
+    """The columns [c0, c1) of a flattened (heads, dh) last dim, zero-padded
+    to whole heads and split into them: (..., heads, dh)."""
+    h0, h1 = c0 // dh, -(-c1 // dh)
+    t = F.pad(t, (c0 - h0 * dh, h1 * dh - c1))
+    return t.reshape(t.shape[:-1] + (h1 - h0, dh))
+
+
+def _mla_on_mesh(p, x, *, cfg, mode, cache, pos, mesh, kv_len):
+    """:func:`mla_apply` on this rank's batch rows: its ``qkv`` columns of
+    ``wq``, ``w_uk`` and ``w_uv`` and its rows of ``wo``; ``w_dkv`` whole
+    (``lora`` replicated), so every rank computes the same latent c_kv.
+    Prefill and training decompress this rank's columns of K/V and run
+    :func:`_attn_prefill_mesh` in 'seq' mode.  A decode step keeps the
+    absorbed form: each rank absorbs its columns of ``w_uk`` into its
+    columns of q (the heads they touch, zero-padded), the latent queries
+    are added over ``qkv`` into every head, split-K runs over ``kv_seq``
+    as before, and each rank expands the latent output through its
+    columns of ``w_uv`` into its columns of ``wo``'s input."""
+    B, S, D = x.shape
+    H, dh, r = cfg.n_heads, cfg.head_dim, cfg.kv_lora_rank
+    cdt = torch_dtype(cfg.compute_dtype)
+    if rule_axes("lora", mesh):
+        raise ValueError("MLA on a mesh keeps its latent rank whole; the "
+                         "'lora' rule must name no mesh axis")
+    axis = one_axis("qkv", mesh)
+    me = axis_rank(mesh, axis) if axis else 0
+    qcols = rank_chunks(H * dh, mesh, axis)
+    c0, c1 = qcols[me]
+    xq = x.to(cdt)
+    q = xq @ p["wq"].to(cdt)
+    c_kv = xq @ p["w_dkv"].to(cdt)                          # (B, S, r)
+
+    if mode == "decode":
+        c_cache = cache["c_kv"]
+        lo = _write_slot_split(c_cache, c_kv, pos, kv_len, mesh)
+        c_comp = c_cache.to(cdt)
+        h0 = c0 // dh
+        wuk = _pad_heads(p["w_uk"].to(cdt), c0, c1, dh)       # (r, nh, dh)
+        q_lat = torch.einsum("bshd,rhd->bshr", _pad_heads(q, c0, c1, dh), wuk)
+        q_lat = F.pad(q_lat, (0, 0, h0, H - h0 - q_lat.shape[2]))
+        q_lat = all_reduce(q_lat, mesh, axis)                # (B, 1, H, r)
+        s = torch.einsum("bshr,btr->bhst", q_lat.float(),
+                         c_comp.float()) / math.sqrt(dh)
+        idx = torch.arange(lo, lo + c_cache.shape[1], device=x.device)
+        s = s.masked_fill(~(idx <= pos), -math.inf)
+        pr = _split_softmax(s, mesh)     # split-K: the softmax across ranks
+        o_lat = all_reduce(torch.einsum("bhst,btr->bshr", pr.to(cdt), c_comp),
+                           mesh, rule_axes("kv_seq"))
+        wuv = _pad_heads(p["w_uv"].to(cdt), c0, c1, dh)
+        o = torch.einsum("bshr,rhd->bshd", o_lat[:, :, h0:h0 + wuv.shape[1]],
+                         wuv).reshape(B, S, -1)
+        o = o[..., c0 - h0 * dh:c1 - h0 * dh]
+        y = all_reduce(o @ p["wo"].to(cdt), mesh, axis).to(x.dtype)
+        return y, {"c_kv": c_cache}
+    k = c_kv @ p["w_uk"].to(cdt)
+    v = c_kv @ p["w_uv"].to(cdt)
+
+    def prep(q, k, q_pos, kv_pos):
+        return (q.reshape(B, q.shape[1], H, dh), k.reshape(B, S, H, dh))
+
+    y, _ = _attn_prefill_mesh(q, k, v, prep=prep, qcols=qcols, kcols=qcols,
+                              wo=p["wo"], cfg=cfg, cdt=cdt, local=False,
+                              mesh=mesh, axis=axis, out_dtype=x.dtype,
+                              heads_mode=False)
+    return y, ({"c_kv": c_kv} if mode == "prefill" else None)

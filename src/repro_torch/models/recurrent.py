@@ -6,28 +6,53 @@ it with the decode step's own recurrence in float32, in place of the
 reference's associative scan, so that a prefill row and a decode step
 round alike (a log-depth scan rounds differently, and at bf16 compute
 that difference grows through the layers: PERF.md, PR 21).  sLSTM feeds
-its hidden state back into the gates and loops too.  Decode is one
-recurrent step with O(1) state.
+its hidden state back into the gates and loops too.  Both loops run through
+:func:`repro_torch.models.loops.token_loop`, which the dry run counts from
+a few steps.  Decode is one recurrent step with O(1) state.
 
-On a mesh the reference constrains nothing inside these mixers, so each
-runs as a region over this rank's batch rows with its weights gathered
-(:func:`repro_torch.models.sharding.mixer_region`); its states leave placed
-by the cache axes (RG-LRU's ``h`` split over ``model`` along
-``rnn_state``).  Every ``model`` rank computes the same thing, so in
-training the gradients leave the region replicated over ``model`` and
-partial over the batch axes.
+On a mesh each mixer runs as a region over this rank's batch rows
+(:func:`repro_torch.models.sharding.mixer_region`) with its projections
+split over ``model`` as the reference's rules place its weights (XLA
+splits the work from them):
+
+* RG-LRU: each rank holds its ``rnn_state`` channels of ``w_in``,
+  ``w_gate``, both gate weights and ``lam`` and its rows of ``w_out``.
+  The gates contract ``u`` over the whole state, so ``u`` is gathered (one
+  (B, S, w) activation; the other way round, an all-reduce of both
+  gates' partial sums, needs the gate weights' rows and moves at least
+  twice the bytes); the
+  recurrence is elementwise per channel and runs on this rank's channels
+  against its slice of ``h`` (``RNN_CACHE_AXES``); the output's partial
+  sums are added over ``model``.
+* mLSTM and sLSTM: each rank holds its ``qkv`` columns of the input
+  projections and its rows of ``wo``; ``w_if``, ``b_if``, ``r_h`` and
+  ``b`` stay whole, and each rank uses their columns of its heads.  Where
+  the heads divide the axis a rank's columns are whole heads and nothing
+  moves before the per-head math; where they do not (xLSTM-350M's 4
+  heads on a 16-way axis) the flattened columns are exchanged into the
+  whole heads they touch.  The mLSTM then splits each
+  head's value columns (its memory C by columns, the key side whole);
+  the sLSTM, whose hidden state feeds all four gates of its head, runs a
+  head on every rank that touches it.  The states leave whole, as their
+  cache axes place them.
+
+In training the gradients of ``x`` and of the whole weights leave the
+region partial over ``model`` (each rank's columns contribute), the split
+weights' as their shards.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .config import torch_dtype
 from .layers import PDef
-from .sharding import is_dtensor, mixer_region
+from .loops import token_loop
+from .sharding import (all_reduce, axis_rank, exchange, is_dtensor,
+                       mixer_region, one_axis, rank_chunks)
 
 RNN_CACHE_AXES = {
     "rglru": {"h": ("batch", "rnn_state")},
@@ -37,14 +62,32 @@ RNN_CACHE_AXES = {
 }
 
 
-def _on_mesh(fn, kind, p, x, cfg, mode, cache, pos):
-    """``fn`` as a region over local shards (its ``mesh`` argument unused:
-    the math is the one-device math on this rank's batch rows, the same on
-    every ``model`` rank, so the gradients are not partial over it)."""
-    return mixer_region(lambda p, x, cache, mesh, **kw: fn(p, x, cache=cache,
-                                                           **kw),
-                        p, x, cache=cache, cache_axes=RNN_CACHE_AXES[kind],
-                        cfg=cfg, mode=mode, pos=pos)
+def _head_spans(cols, width: int) -> List[Tuple[int, int]]:
+    """The heads [h0, h1) each rank's columns ``cols`` of a flattened
+    (heads, ``width``) dim touch."""
+    return [(c0 // width, -(-c1 // width) if c1 > c0 else c0 // width)
+            for c0, c1 in cols]
+
+
+def _owners(spans) -> List[Tuple[int, int]]:
+    """A partition of the heads: each head to the first rank whose span
+    holds it (the ranks that touch a head compute its states alike)."""
+    out, prev = [], 0
+    for h0, h1 in spans:
+        lo = max(h0, prev)
+        out.append((lo, max(lo, h1)))
+        prev = out[-1][1]
+    return out
+
+
+def _gather_heads(t, spans, me, mesh, axis):
+    """A state (B, heads of this rank's span, ...) whole over the heads on
+    every rank: each head from its owner (:func:`_owners`)."""
+    own = _owners(spans)
+    lo, hi = own[me]
+    t = t[:, lo - spans[me][0]:hi - spans[me][0]]
+    return exchange(t, mesh, axis, 1, own, 1, [(0, own[-1][1])] * len(own))
+
 
 # ---------------------------------------------------------------------------
 # RG-LRU (Griffin): h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
@@ -66,10 +109,17 @@ def rglru_defs(cfg) -> Dict[str, Any]:
     }
 
 
-def _rglru_coeffs(p, u, cdt):
-    """Per-step (a_t, b_t) of the linear recurrence h = a⊙h_prev + b."""
-    r = torch.sigmoid((u @ p["w_rec_gate"].to(cdt)).float())
-    i = torch.sigmoid((u @ p["w_inp_gate"].to(cdt)).float())
+RGLRU_REGION_AXES = dict(
+    {k: (None, "rnn_state") for k in ("w_in", "w_gate", "w_rec_gate",
+                                     "w_inp_gate")},
+    lam=("rnn_state",), w_out=("rnn_state", None))
+
+
+def _rglru_coeffs(p, u_all, u, cdt):
+    """Per-step (a_t, b_t) of the linear recurrence h = a⊙h_prev + b, on
+    the channels of ``u``; the gates contract the whole state ``u_all``."""
+    r = torch.sigmoid((u_all @ p["w_rec_gate"].to(cdt)).float())
+    i = torch.sigmoid((u_all @ p["w_inp_gate"].to(cdt)).float())
     log_a = -RGLRU_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     gated = i * u.float()
@@ -77,16 +127,33 @@ def _rglru_coeffs(p, u, cdt):
     return a, b
 
 
-def rglru_apply(p, x, *, cfg, mode: str, cache=None, pos=None):
-    """x: (B, S, D) → (y, new_cache);  cache = {'h': (B, w)} float32."""
+def _rglru_step(carry, x_t, consts):
+    a_t, b_t = x_t
+    h = a_t * carry[0] + b_t
+    return (h,), h
+
+
+def rglru_apply(p, x, *, cfg, mode: str, cache=None, pos=None, mesh=None):
+    """x: (B, S, D) → (y, new_cache);  cache = {'h': (B, w)} float32.  On
+    a mesh, this rank's ``rnn_state`` channels (module docstring)."""
     if is_dtensor(x):
-        return _on_mesh(rglru_apply, "rglru", p, x, cfg, mode, cache, pos)
+        return mixer_region(rglru_apply, p, x, axes=RGLRU_REGION_AXES,
+                            cache=cache, cache_axes=RNN_CACHE_AXES["rglru"],
+                            stored={"h": (cfg.rnn_state_dim or cfg.d_model,)},
+                            split=one_axis("rnn_state"), cfg=cfg, mode=mode,
+                            pos=pos)
     B, S, D = x.shape
     cdt = torch_dtype(cfg.compute_dtype)
     xq = x.to(cdt)
     u = xq @ p["w_in"].to(cdt)                           # (B, S, w)
     gate = F.gelu(xq @ p["w_gate"].to(cdt), approximate="tanh")
-    a, b = _rglru_coeffs(p, u, cdt)                      # float32 (B, S, w)
+    u_all = u
+    if mesh is not None:
+        axis = one_axis("rnn_state", mesh)
+        cols = rank_chunks(cfg.rnn_state_dim or cfg.d_model, mesh, axis)
+        u_all = exchange(u, mesh, axis, -1, cols, -1,
+                         [(0, cols[-1][1])] * len(cols))
+    a, b = _rglru_coeffs(p, u_all, u, cdt)               # float32 (B, S, w)
 
     if mode == "decode":
         h = a[:, 0] * cache["h"] + b[:, 0]
@@ -96,13 +163,11 @@ def rglru_apply(p, x, *, cfg, mode: str, cache=None, pos=None):
         # the decode step's recurrence, step by step: each prefill row is
         # rounded exactly as a decode step would round it
         h = torch.zeros_like(a[:, 0]) if cache is None else cache["h"]
-        hs = []
-        for t in range(S):
-            h = a[:, t] * h + b[:, t]
-            hs.append(h)
-        hs = torch.stack(hs, dim=1)                      # (B, S, w)
+        (h,), hs = token_loop(_rglru_step, (h,), (a, b), S)   # (B, S, w)
         new_cache = {"h": h} if mode == "prefill" else None
     y = (hs.to(cdt) * gate) @ p["w_out"].to(cdt)
+    if mesh is not None:
+        y = all_reduce(y, mesh, axis)
     return y.to(x.dtype), new_cache
 
 
@@ -162,28 +227,62 @@ def _mlstm_chunk(q, k, v, ilog, flog, state):
     return h, (C_new, n_new, m_new)
 
 
-def mlstm_apply(p, x, *, cfg, mode: str, cache=None, pos=None, chunk: int = 128):
+MLSTM_REGION_AXES = {"wq": (None, "qkv"), "wk": (None, "qkv"),
+                     "wv": (None, "qkv"), "w_if": (None, None),
+                     "b_if": (None,), "wo": ("qkv", None)}
+
+
+def mlstm_apply(p, x, *, cfg, mode: str, cache=None, pos=None, chunk: int = 128,
+                mesh=None):
+    """On a mesh, the heads this rank's ``qkv`` columns touch, and of them
+    its value columns (module docstring)."""
     if is_dtensor(x):
-        return _on_mesh(mlstm_apply, "mlstm", p, x, cfg, mode, cache, pos)
+        return mixer_region(mlstm_apply, p, x, axes=MLSTM_REGION_AXES,
+                            cache=cache, cache_axes=RNN_CACHE_AXES["mlstm"],
+                            split=one_axis("qkv"), cfg=cfg, mode=mode, pos=pos)
     B, S, D = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
     cdt = torch_dtype(cfg.compute_dtype)
     xq = x.to(cdt)
+    q, k, v = (xq @ p[w].to(cdt) for w in ("wq", "wk", "wv"))
+    h0, h1, e0 = 0, H, 0
+    if mesh is not None:
+        axis = one_axis("qkv", mesh)
+        me = axis_rank(mesh, axis) if axis else 0
+        cols = rank_chunks(H * dh, mesh, axis)
+        spans = _head_spans(cols, dh)
+        (h0, h1), (c0, c1) = spans[me], cols[me]
+        wide = [(a * dh, b * dh) for a, b in spans]
+        q = exchange(q, mesh, axis, -1, cols, -1, wide)
+        k = exchange(k, mesh, axis, -1, cols, -1, wide)
+        # each head's value columns split as they come, where every rank's
+        # columns are whole heads or lie in one head; else whole heads
+        if all(b - a == 1 or (c1_ - c0_) == (b - a) * dh
+               for (a, b), (c0_, c1_) in zip(spans, cols)):
+            e0 = c0 - h0 * dh
+        else:
+            v = exchange(v, mesh, axis, -1, cols, -1, wide)
+    nh = h1 - h0
 
-    def heads(w):
-        return (xq @ w.to(cdt)).reshape(B, S, H, dh).transpose(1, 2).float()
+    def heads(t):
+        return t.reshape(B, S, nh, -1).transpose(1, 2).float()
 
-    q32, k32, v32 = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
-    gates = (xq @ p["w_if"].to(cdt) + p["b_if"].to(cdt)).float()
-    ilog = gates[..., :H].transpose(1, 2)                 # (B,H,S) input pre-act
-    flog = F.logsigmoid(gates[..., H:]).transpose(1, 2)
+    q32, k32, v32 = heads(q), heads(k), heads(v)
+    w_if, b_if = p["w_if"], p["b_if"]
+    if nh < H:          # this rank's heads' input and forget gates only
+        w_if = torch.cat([w_if[:, h0:h1], w_if[:, H + h0:H + h1]], dim=1)
+        b_if = torch.cat([b_if[h0:h1], b_if[H + h0:H + h1]])
+    gates = (xq @ w_if.to(cdt) + b_if.to(cdt)).float()
+    ilog = gates[..., :nh].transpose(1, 2)                # (B,H,S) input pre-act
+    flog = F.logsigmoid(gates[..., nh:]).transpose(1, 2)
 
     if cache is not None:
-        state = (cache["C"], cache["n"], cache["m"])
+        state = (cache["C"][:, h0:h1, :, e0:e0 + v32.shape[-1]],
+                 cache["n"][:, h0:h1], cache["m"][:, h0:h1])
     else:
-        state = (torch.zeros((B, H, dh, dh), device=x.device),
-                 torch.zeros((B, H, dh), device=x.device),
-                 torch.full((B, H), -1e30, device=x.device))
+        state = (torch.zeros((B, nh, dh, v32.shape[-1]), device=x.device),
+                 torch.zeros((B, nh, dh), device=x.device),
+                 torch.full((B, nh), -1e30, device=x.device))
 
     if mode == "decode":
         h, state = _mlstm_chunk(q32, k32, v32, ilog, flog, state)
@@ -202,9 +301,20 @@ def mlstm_apply(p, x, *, cfg, mode: str, cache=None, pos=None, chunk: int = 128)
             outs.append(h)
         hs = torch.cat(outs, dim=2).transpose(1, 2)       # (B,S,H,dh)
 
+    hs = hs.to(cdt).reshape(B, S, -1)
     new_cache = {"C": state[0], "n": state[1], "m": state[2]} \
         if mode in ("prefill", "decode") else None
-    y = hs.to(cdt).reshape(B, S, H * dh) @ p["wo"].to(cdt)
+    if mesh is None:
+        return (hs @ p["wo"].to(cdt)).to(x.dtype), new_cache
+    own = (c0 - h0 * dh - e0, c1 - h0 * dh - e0)        # this rank's columns
+    y = all_reduce(hs[..., own[0]:own[1]] @ p["wo"].to(cdt), mesh, axis)
+    if new_cache is not None:
+        C = new_cache["C"].permute(0, 2, 1, 3).reshape(B, dh, -1)
+        C = exchange(C[..., own[0]:own[1]], mesh, axis, -1, cols, -1,
+                     [(0, H * dh)] * len(cols))
+        new_cache = {"C": C.reshape(B, dh, H, dh).permute(0, 2, 1, 3),
+                     "n": _gather_heads(new_cache["n"], spans, me, mesh, axis),
+                     "m": _gather_heads(new_cache["m"], spans, me, mesh, axis)}
     return y.to(x.dtype), new_cache
 
 
@@ -256,42 +366,72 @@ def slstm_defs(cfg) -> Dict[str, Any]:
     }
 
 
-def slstm_apply(p, x, *, cfg, mode: str, cache=None, pos=None):
+SLSTM_REGION_AXES = {"w_x": (None, "qkv"), "r_h": (None, None, None),
+                     "b": (None,), "wo": ("qkv", None)}
+
+
+def _slstm_step(carry, x_t, consts):
+    c, n, m, h = carry
+    g = x_t[0] + torch.einsum("bhd,hde->bhe", h, consts[0])
+    z_, i_, f_, o_ = g.chunk(4, dim=-1)
+    z = torch.tanh(z_)
+    o = torch.sigmoid(o_)
+    flog = F.logsigmoid(f_)
+    m_new = torch.maximum(flog + m, i_)
+    fs = torch.exp(flog + m - m_new)
+    is_ = torch.exp(i_ - m_new)
+    c = fs * c + is_ * z
+    n = fs * n + is_
+    h = o * c / torch.clamp_min(n, 1e-6)
+    return (c, n, m_new, h), h
+
+
+def slstm_apply(p, x, *, cfg, mode: str, cache=None, pos=None, mesh=None):
+    """On a mesh, the heads this rank's ``qkv`` columns of ``w_x`` touch
+    (module docstring)."""
     if is_dtensor(x):
-        return _on_mesh(slstm_apply, "slstm", p, x, cfg, mode, cache, pos)
+        return mixer_region(slstm_apply, p, x, axes=SLSTM_REGION_AXES,
+                            cache=cache, cache_axes=RNN_CACHE_AXES["slstm"],
+                            split=one_axis("qkv"), cfg=cfg, mode=mode, pos=pos)
     B, S, D = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
     hd = H * dh
-    pre = x.float() @ p["w_x"].float() + p["b"].float()
-    pre = pre.reshape(B, S, H, 4 * dh)
-    r_h = p["r_h"].float()
+    pre = x.float() @ p["w_x"].float()
+    h0, h1 = 0, H
+    if mesh is not None:
+        axis = one_axis("qkv", mesh)
+        me = axis_rank(mesh, axis) if axis else 0
+        cols = rank_chunks(4 * hd, mesh, axis)
+        spans = _head_spans(cols, 4 * dh)
+        h0, h1 = spans[me]
+        pre = exchange(pre, mesh, axis, -1, cols, -1,
+                       [(a * 4 * dh, b * 4 * dh) for a, b in spans])
+    nh = h1 - h0
+    pre = (pre + p["b"][h0 * 4 * dh:h1 * 4 * dh].float()).reshape(B, S, nh, 4 * dh)
+    r_h = p["r_h"][h0:h1].float()
 
     if cache is not None:
-        c, n, m, h = cache["c"], cache["n"], cache["m"], cache["h"]
+        state = tuple(cache[k][:, h0:h1] for k in ("c", "n", "m", "h"))
     else:
-        c = torch.zeros((B, H, dh), device=x.device)
-        n = torch.full((B, H, dh), 1e-6, device=x.device)
-        m = torch.full((B, H, dh), -1e30, device=x.device)
-        h = torch.zeros((B, H, dh), device=x.device)
-
-    hs = []
-    for t in range(S):
-        g = pre[:, t] + torch.einsum("bhd,hde->bhe", h, r_h)
-        z_, i_, f_, o_ = g.chunk(4, dim=-1)
-        z = torch.tanh(z_)
-        o = torch.sigmoid(o_)
-        flog = F.logsigmoid(f_)
-        m_new = torch.maximum(flog + m, i_)
-        fs = torch.exp(flog + m - m_new)
-        is_ = torch.exp(i_ - m_new)
-        c = fs * c + is_ * z
-        n = fs * n + is_
-        h = o * c / torch.clamp_min(n, 1e-6)
-        m = m_new
-        hs.append(h)
-    hs = torch.stack(hs, dim=1)                           # (B,S,H,dh)
-    new_cache = ({"c": c, "n": n, "m": m, "h": h}
+        state = (torch.zeros((B, nh, dh), device=x.device),
+                 torch.full((B, nh, dh), 1e-6, device=x.device),
+                 torch.full((B, nh, dh), -1e30, device=x.device),
+                 torch.zeros((B, nh, dh), device=x.device))
+    state, hs = token_loop(_slstm_step, state, (pre,), S, (r_h,))  # (B,S,H,dh)
+    new_cache = (dict(zip(("c", "n", "m", "h"), state))
                  if mode in ("prefill", "decode") else None)
     cdt = torch_dtype(cfg.compute_dtype)
-    y = hs.reshape(B, S, hd).to(cdt) @ p["wo"].to(cdt)
+    hs = hs.reshape(B, S, nh * dh)
+    if mesh is None:
+        return (hs.to(cdt) @ p["wo"].to(cdt)).to(x.dtype), new_cache
+    # this rank's rows of wo: the owned heads' outputs re-chunked to them
+    own = _owners(spans)
+    lo, hi = own[me]
+    hs = exchange(hs[..., (lo - h0) * dh:(hi - h0) * dh], mesh, axis, -1,
+                  [(a * dh, b * dh) for a, b in own], -1,
+                  rank_chunks(hd, mesh, axis))
+    y = all_reduce(hs.to(cdt) @ p["wo"].to(cdt), mesh, axis)
+    if new_cache is not None:
+        new_cache = {k: _gather_heads(v, spans, me, mesh, axis)
+                     for k, v in new_cache.items()}
     return y.to(x.dtype), new_cache

@@ -25,23 +25,36 @@ The mesh regions take their axes from the active rules
 from ``vocab``, attention's query rows, heads and cache slots from
 ``seq_shard``, ``heads_shard`` and ``kv_seq``, SwiGLU's hidden units from
 ``dff``, the experts and their d_ff slices from ``experts`` and
-``expert_dff``; a rule naming several mesh axes splits over them major
+``expert_dff``, the mixers' projection columns from ``qkv`` and
+``rnn_state``; a rule naming several mesh axes splits over them major
 first (:func:`axes_bounds`), and one naming none leaves the work whole on
 every rank.  So they run under the dry run's per-shape rules as under
 :data:`DEFAULT_RULES`.
+
+A mixer region (:func:`mixer_region`) enters each parameter in its
+storage layout with only the FSDP axis (``dmodel_fsdp``, ``data``)
+gathered: a dim the rules put on ``model`` (``qkv``, ``rnn_state``) stays
+split, as XLA's partitioner splits the reference's projections from the
+same rules, and each rank projects with its own columns.  The
+activations move instead of the weights: :func:`exchange` turns a split of
+the columns into a split of the rows, re-chunks columns into the heads a
+rank needs, or gathers them whole, in one ``all_to_all_single`` with
+per-rank sizes.
 
 Training runs through the same regions.  Their collectives are autograd
 functions with Megatron's conjugate backward (:func:`all_reduce` out of a
 region: identity; :func:`copy_in`: all-reduce; :func:`all_gather_dim` for a
 consumer every rank computes alike: this rank's chunk;
 :func:`gather_scatter_dim` and :func:`reduce_scatter_dim`: each other's
-collective; :func:`all_to_all`: the reverse exchange), and a region's
-inputs leave it with the gradient placements of :func:`grad_placements`,
-which DTensor's redistribute then reduces into each parameter's layout.
+collective; :func:`all_to_all` and :func:`exchange`: the reverse exchange),
+and a region's inputs leave it with the gradient placements of
+:func:`grad_placements` (a split parameter's as its shard), which
+DTensor's redistribute then reduces into each parameter's layout.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -520,14 +533,144 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _AllToAll.apply(x, mesh.get_group(axis))
 
 
+Bounds = Sequence[Tuple[int, int]]
+
+
+def one_axis(name: str, mesh=None) -> Tuple[str, ...]:
+    """The mesh axis (as a 1-tuple; () where it is replicated) the logical
+    axis ``name`` splits over under the active rules: the split of a
+    mixer's projections over ``qkv`` or ``rnn_state``, which the regions
+    exchange over one axis only."""
+    axes = rule_axes(name, mesh)
+    if len(axes) > 1:
+        raise ValueError(f"the mixers split {name!r} over one mesh axis, "
+                         f"not {axes}")
+    return axes
+
+
+def rank_chunks(n: int, mesh, axis) -> List[Tuple[int, int]]:
+    """Every rank's [start, stop) of ``n`` rows split over mesh axis
+    ``axis`` (``()``: one rank holding all), in rank order: the chunks a
+    DTensor ``Shard`` holds (:func:`chunk_bounds`)."""
+    m = axis_size(mesh, axis) if axis else 1
+    return [chunk_bounds(n, m, r) for r in range(m)]
+
+
+def _overlap(p: Tuple[int, int], q: Tuple[int, int]) -> Tuple[int, int]:
+    """The rows runs ``p`` and ``q`` share (an empty run at ``p``'s start
+    where they share none)."""
+    lo, hi = max(p[0], q[0]), min(p[1], q[1])
+    return (lo, hi) if hi > lo else (p[0], p[0])
+
+
+def _exchange(x, group, me, a, src, b, dst):
+    """The exchange of :func:`exchange` on local tensors (``group`` None:
+    one rank).  Each piece a rank receives is added into its block, so
+    ranks whose ``src`` rows overlap add their values."""
+    n, same = len(src), a == b
+    total = max(hi for _, hi in src)
+
+    def piece(i, j):        # the [lo, hi) along ``a`` rank i sends rank j
+        return _overlap(src[i], dst[j]) if same else src[i]
+
+    def shape(i, j):
+        s = list(x.shape)
+        lo, hi = piece(i, j)
+        s[a] = hi - lo
+        if not same:
+            s[b] = dst[j][1] - dst[j][0]
+        return s
+
+    def send(j):
+        lo, hi = piece(me, j)
+        y = x.narrow(a, lo - src[me][0], hi - lo)
+        return y if same else y.narrow(b, dst[j][0], dst[j][1] - dst[j][0])
+
+    out_shape = list(x.shape)
+    out_shape[b] = dst[me][1] - dst[me][0]
+    if not same:
+        out_shape[a] = total
+    base = dst[me][0] if same else 0
+    numel = [[math.prod(shape(i, j)) for j in range(n)] for i in range(n)]
+    if group is None or not any(numel[i][j] for i in range(n)
+                                for j in range(n) if i != j):
+        got = {me: send(me)}
+    else:
+        buf = torch.cat([send(j).reshape(-1) for j in range(n)])
+        recv = buf.new_empty(sum(numel[i][me] for i in range(n)))
+        dist.all_to_all_single(recv, buf.contiguous(),
+                               [numel[i][me] for i in range(n)],
+                               [numel[me][j] for j in range(n)], group=group)
+        got, off = {}, 0
+        for i in range(n):
+            got[i] = recv[off:off + numel[i][me]].view(shape(i, me))
+            off += numel[i][me]
+    pieces = [(piece(i, me)[0] - base, got[i]) for i in sorted(got)
+              if got[i].numel()]
+    if not pieces:
+        return x.new_zeros(out_shape)
+    if len(pieces) == 1 and tuple(pieces[0][1].shape) == tuple(out_shape):
+        return pieces[0][1]
+    disjoint = all(pieces[k][0] + pieces[k][1].shape[a] <= pieces[k + 1][0]
+                   for k in range(len(pieces) - 1))
+    if disjoint and sum(p.shape[a] for _, p in pieces) == out_shape[a]:
+        return torch.cat([p for _, p in pieces], dim=a)
+    out = x.new_zeros(out_shape)
+    for lo, p in pieces:
+        out.narrow(a, lo, p.shape[a]).add_(p)
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    """:func:`exchange` forward; the reverse exchange of the gradient
+    backward (each piece sent back where it came from, the pieces of rows
+    several ranks received added)."""
+
+    @staticmethod
+    def forward(ctx, x, group, me, a, src, b, dst):
+        ctx.back = (group, me, b, dst, a, src)
+        return _exchange(x, group, me, a, src, b, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(g.contiguous(), *ctx.back),) + (None,) * 6
+
+
+def exchange(x: torch.Tensor, mesh, axis, src_dim: int, src: Bounds,
+             dst_dim: int, dst: Bounds) -> torch.Tensor:
+    """Move a tensor between two splits over mesh axis ``axis`` (a 1-tuple
+    or ``()``).  Rank r holds ``x``: the rows ``src[r]`` of dim
+    ``src_dim`` (the ``src`` chunks partition it), and, when ``dst_dim``
+    is another dim, all of that dim.  It returns the rows ``dst[r]`` of
+    dim ``dst_dim`` (and, when ``src_dim`` is another dim, all of
+    ``src_dim``): a split of the columns turned into a split of the rows,
+    or the columns re-chunked into other (possibly overlapping) runs, or
+    gathered whole.  One ``all_to_all_single`` with per-rank sizes (an
+    ``all_gather`` where every rank gathers equal chunks whole, and no
+    collective where no rank needs another's rows); backward, the reverse
+    exchange, which adds the gradients of rows several ranks received."""
+    n = axis_size(mesh, axis) if axis else 1
+    a, b = src_dim % x.dim(), dst_dim % x.dim()
+    src, dst = [tuple(s) for s in src], [tuple(d) for d in dst]
+    if n > 1 and a == b and len({hi - lo for lo, hi in src}) == 1 \
+            and all(d == (0, src[-1][1]) for d in dst):
+        return gather_scatter_dim(x, a, mesh, axis[0])
+    if n == 1:
+        return _exchange(x, None, 0, a, src, b, dst)
+    return _Exchange.apply(x, mesh.get_group(axis[0]), axis_rank(mesh, axis),
+                           a, src, b, dst)
+
+
 def grad_placements(pl, mesh, split: Sequence[str]):
     """The gradient placements of a region input placed ``pl``: ``Shard``
-    where the input is split (each rank's gradient of its own slice),
-    ``Partial`` over the batch axes where it is replicated (each rank's
-    rows contribute), and over the axes ``split`` (the ranks along them
-    did different work on it: query rows, heads, d_ff, vocabulary
-    columns, expert tokens); ``Replicate`` where the ranks computed the
-    same thing."""
+    where the input is split (each rank's gradient of its own slice: a
+    projection's columns over ``qkv`` or ``rnn_state``, its rows of the
+    output projection, its d_ff or vocabulary slice), ``Partial`` over the
+    batch axes where it is replicated (each rank's rows contribute), and
+    over the axes ``split`` (the ranks along them did different work on
+    it: projection columns, query rows, heads, d_ff, vocabulary columns,
+    expert tokens); ``Replicate`` where the ranks computed the same
+    thing."""
     from torch.distributed.tensor import Partial, Shard
     names = tuple(mesh.mesh_dim_names)
     partial = set(batch_axis_names(mesh)) | set(split)
@@ -577,26 +720,33 @@ def region(fn, args: Sequence, arg_names: Sequence, out_names: Sequence, *,
     return wrapped[0] if single else tuple(wrapped)
 
 
-def mixer_region(fn, p, x, *, cache=None, cache_axes=None, inplace=(),
-                 place=True, split: Sequence[str] = (), **kw):
+def mixer_region(fn, p, x, *, axes, cache=None, cache_axes=None, inplace=(),
+                 stored=None, place=True, split: Sequence[str] = (), **kw):
     """A mixer under the active mesh: ``fn(p, x, cache=..., mesh=..., **kw)``
     over local shards.  ``x`` enters in the residual stream's layout and
-    ``y`` leaves in it; each parameter enters gathered;
-    a cache leaf enters in its storage layout ``cache_axes[k]`` when it is
-    in ``inplace`` (a decode step writes its slot there), else gathered,
-    and each cache leaf ``fn`` returns is placed back by ``cache_axes``
-    (left gathered when not ``place``: a prefill's K/V, which the model
-    pads before placing).  ``split``: the mesh axes whose ranks do
-    different work (attention's query rows or heads), over which the
-    gradients of ``x`` and ``p`` are partial (:func:`grad_placements`).
-    Cache lengths need not split evenly, so unlike :func:`region` the
-    outputs are wrapped with explicit global shapes."""
+    ``y`` leaves in it.  Each parameter ``k`` enters placed by the logical
+    names ``axes[k]``: its storage layout with the FSDP axis
+    (``dmodel_fsdp``) gathered, so a dim the rules put on ``model``
+    (``qkv``, ``rnn_state``) stays split and each rank holds its columns
+    (or rows) of the projection.  A cache leaf enters in its storage
+    layout ``cache_axes[k]`` when it is in ``inplace`` (a decode step
+    writes its slot there) or in ``stored`` (a dict of the leaf's global
+    shape past the batch: RG-LRU's state, split like its channels, leaves
+    in that layout too), else gathered; each other cache leaf ``fn``
+    returns is placed back by ``cache_axes`` (left gathered when not
+    ``place``: a prefill's K/V, which the model pads before placing).
+    ``split``: the mesh axes whose ranks do different work (the axes of
+    ``qkv`` or ``rnn_state``, and attention's query rows or heads), over
+    which the gradients of ``x`` and of the parameters they hold whole are
+    partial (:func:`grad_placements`); a split parameter's gradient leaves
+    as its shard.  Cache lengths need not split evenly, so unlike
+    :func:`region` the outputs are wrapped with explicit global shapes."""
     mesh = current_mesh()
-    p_loc = {k: _enter(v, (None,) * v.dim(), mesh, split)
-             for k, v in p.items()}
+    stored = stored or {}
+    p_loc = {k: _enter(v, axes[k], mesh, split) for k, v in p.items()}
     c_loc = None
     if cache is not None:
-        c_loc = {k: to_local(v, *(cache_axes[k] if k in inplace
+        c_loc = {k: to_local(v, *(cache_axes[k] if k in inplace or k in stored
                                   else gathered(cache_axes[k])))
                  for k, v in cache.items()}
     y, nc = fn(p_loc, _enter(x, ACT, mesh, split), cache=c_loc,
@@ -605,7 +755,9 @@ def mixer_region(fn, p, x, *, cache=None, cache_axes=None, inplace=(),
     y = from_local(y, mesh, ACT, (B,) + tuple(y.shape[1:]))
     if nc is not None:
         nc = {k: cache[k] if k in inplace else from_local(
-                  v, mesh, gathered(cache_axes[k]), (B,) + tuple(v.shape[1:]))
+                  v, mesh, cache_axes[k] if k in stored
+                  else gathered(cache_axes[k]),
+                  (B,) + tuple(stored.get(k, v.shape[1:])))
               for k, v in nc.items()}
         if place:
             nc = {k: logical(v, *cache_axes[k]) for k, v in nc.items()}

@@ -32,8 +32,9 @@ DTensor placed by its ``PDef`` axes under the rules of
 :mod:`repro_torch.models.sharding`, and ``prefill``/``decode_step`` run
 inside ``sharding_rules(mesh)``: the tokens enter as the residual stream
 placed by the batch rule (``("batch", "seq", "dmodel")``), each block's
-mixer and FFN run as regions over local shards with explicit collectives,
-the caches leave placed by :func:`cache_axes` (K/V split over ``model``
+mixer and FFN run as regions over local shards with explicit collectives
+(each mixer on its ``model`` shard of the projections, moving activations
+rather than weights), the caches leave placed by :func:`cache_axes` (K/V split over ``model``
 along ``kv_seq``), and the logits leave through ``full_tensor()``.  The
 batch must split evenly over the batch axes.  ``loss_fn`` runs there too:
 each region's inputs take their gradients' placements

@@ -31,6 +31,20 @@ A DTensor op is left to DTensor, whose local ops (and collectives) are then
 counted: the counts are this rank's, per device, as ``hlo_stats`` reads
 post-SPMD HLO.  Loops run eagerly, so a loop of 17 steps is counted 17
 times; there is no trip count to parse.
+
+A per-token loop (:func:`repro_torch.models.loops.token_loop`: the RG-LRU
+prefill and the sLSTM) can be counted from a few of its steps instead, as
+``hlo_stats`` scales a while body by its trip count: under
+``OpStats(sample_loops=True)`` (its ``run_token_loop`` hook), on fake
+tensors only, it runs :data:`SAMPLED_STEPS` steps and adds the last
+step's counts for each step it skips.  Every step runs the same ops on the
+same shapes, so the count is exact; in training the loop's backward is
+counted on the 3- and 4-step graphs and extended the same way (its first
+and last steps differ from the rest, so the counts are affine in the trip
+count from 3 steps on).  The outputs keep their full shapes (the sampled
+steps' values stand in for the rest), so only counts, never values, come
+out of a sampled loop, and asking for one on real tensors raises.  The
+memory peak counts the sampled steps' storages only.
 """
 from __future__ import annotations
 
@@ -97,9 +111,11 @@ class OpStats(TorchDispatchMode):
     """Counts FLOPs, bytes and collectives of the ops run while active;
     :meth:`stats` returns them in ``hlo_stats``' keys."""
 
-    def __init__(self):
+    def __init__(self, sample_loops: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
+        # the hook models.loops.token_loop looks for on the mode stack
+        self.run_token_loop = self._sampled_loop if sample_loops else None
         self._flop_fns = flop_registry
         self.flops = 0.0
         self.bytes = 0.0
@@ -129,6 +145,44 @@ class OpStats(TorchDispatchMode):
     def _free(self, key, n):
         self._held.discard(key)
         self.live -= n
+
+    def _sampled_loop(self, step, carry, xs, n, consts):
+        """``token_loop``'s steps, :data:`SAMPLED_STEPS` of them run and
+        the counts extended to ``n`` (the module docstring)."""
+        from torch._subclasses.fake_tensor import is_fake
+        tensors = carry + xs + consts
+        if not all(is_fake(t) for t in tensors):
+            raise RuntimeError("loop sampling counts fake tensors only: on "
+                               "real tensors every step must run")
+        if n <= SAMPLED_STEPS:
+            ys = []
+            for t in range(n):
+                carry, y = step(carry, tuple(x[:, t] for x in xs), consts)
+                ys.append(y)
+            return carry, torch.stack(ys, dim=1)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            out = _SampledLoop.apply(self, step, n, len(carry), len(xs),
+                                     *tensors)
+            return tuple(out[:-1]), out[-1]
+        ys, _, carry = _sample(self, step, carry, xs, consts, n)
+        return carry, torch.stack(ys + [ys[-1]] * (n - len(ys)), dim=1)
+
+    def _counts(self) -> Dict[str, float]:
+        """The additive counters, flat: what a sampled loop extends."""
+        out = {"flops": self.flops, "bytes": self.bytes, "n_ops": self.n_ops}
+        out.update({f"coll/{k}": v for k, v in self.coll.items()})
+        out.update({f"n/{k}": v for k, v in self.coll_n.items()})
+        return out
+
+    def _add(self, delta: Dict[str, float]):
+        self.flops += delta.get("flops", 0)
+        self.bytes += delta.get("bytes", 0)
+        self.n_ops += int(delta.get("n_ops", 0))
+        for k, v in delta.items():
+            if v and k.startswith("coll/"):
+                self.coll[k[5:]] += v
+            elif v and k.startswith("n/"):
+                self.coll_n[k[2:]] += int(v)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -175,3 +229,88 @@ def op_stats(fn, *args, **kwargs):
     with mode:
         out = fn(*args, **kwargs)
     return out, mode.stats()
+
+
+# ---------------------------------------------------------------------------
+# Per-token loops
+# ---------------------------------------------------------------------------
+
+SAMPLED_STEPS = 4
+
+
+def _diff(a: Dict[str, float], b: Dict[str, float]) -> Dict[str, float]:
+    return {k: b.get(k, 0) - a.get(k, 0) for k in set(a) | set(b)}
+
+
+def _sample(mode, step, carry, xs, consts, n):
+    """:data:`SAMPLED_STEPS` steps, the forward counts extended to ``n``:
+    (their outputs, the carries after 3 and after 4 steps)."""
+    ys, carries, snaps = [], [], []
+    for t in range(SAMPLED_STEPS):
+        carry, y = step(carry, tuple(x[:, t] for x in xs), consts)
+        ys.append(y)
+        if t >= SAMPLED_STEPS - 2:
+            snaps.append(mode._counts())
+            carries.append(carry)
+    mode._add({k: (n - SAMPLED_STEPS) * v
+               for k, v in _diff(snaps[0], snaps[1]).items()})
+    return ys, carries[0], carries[1]
+
+
+class _SampledLoop(torch.autograd.Function):
+    """A sampled loop in training: the forward builds the 4-step graph (its
+    counts extended to ``n``); the backward runs the 3- and 4-step
+    problems through it and extends their difference to ``n`` steps."""
+
+    @staticmethod
+    def forward(ctx, mode, step, n, nc, nx, *tensors):
+        # the inner graph keeps its own saved tensors: a remat region's
+        # hooks would recompute it in the backward, which runs it twice
+        keep = torch.autograd.graph.saved_tensors_hooks(lambda t: t,
+                                                        lambda t: t)
+        with torch.enable_grad(), keep:
+            inner = [t.detach().requires_grad_(t.requires_grad)
+                     for t in tensors]
+            ys, c3, c4 = _sample(mode, step, tuple(inner[:nc]),
+                                 tuple(inner[nc:nc + nx]),
+                                 tuple(inner[nc + nx:]), n)
+        ctx.mode, ctx.n, ctx.inner = mode, n, inner
+        ctx.ys, ctx.carries = ys, (c3, c4)
+        ctx.set_materialize_grads(False)
+        out = [c.detach() for c in c4]
+        ys = [y.detach() for y in ys]
+        return tuple(out) + (torch.stack(ys + [ys[-1]] * (n - len(ys)), dim=1),)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mode, n = ctx.mode, ctx.n
+        g_carry, g_ys = grads[:-1], grads[-1]
+        want = [i for i, t in enumerate(ctx.inner) if t.requires_grad]
+        inputs = [ctx.inner[i] for i in want]
+
+        def run(k, carry, retain):
+            outs, gs = [], []
+            for t in range(k):
+                if g_ys is not None:
+                    outs.append(ctx.ys[t])
+                    gs.append(g_ys[:, t])
+            for c, g in zip(carry, g_carry):
+                if g is not None:
+                    outs.append(c)
+                    gs.append(g)
+            return torch.autograd.grad(outs, inputs, gs, retain_graph=retain,
+                                       allow_unused=True)
+
+        s0 = mode._counts()
+        got = run(SAMPLED_STEPS - 1, ctx.carries[0], True)
+        s1 = mode._counts()
+        run(SAMPLED_STEPS, ctx.carries[1], False)
+        s2 = mode._counts()
+        # counted: d3 + d4; wanted: d3 + (n - 3) (d4 - d3)
+        d3, d4 = _diff(s0, s1), _diff(s1, s2)
+        mode._add({k: (n - SAMPLED_STEPS + 1) * (d4.get(k, 0) - d3.get(k, 0))
+                   - d4.get(k, 0) for k in set(d3) | set(d4)})
+        out = [None] * len(ctx.inner)
+        for i, g in zip(want, got):
+            out[i] = g
+        return (None,) * 5 + tuple(out)

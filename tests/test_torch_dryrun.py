@@ -14,18 +14,40 @@ against the JAX package's ``hlo_stats`` and dry run.
   no-mesh model within rel 1e-5 (gradients 1e-4 of each leaf's max, as
   ``tests/test_torch_mesh_train.py``).
 * Against ``hlo_stats``: reduced configs on a fake (2, 2) mesh against the
-  reference's compiled step on a (2, 2) mesh of four forced host devices.
-  The port's per-device dot FLOPs are never fewer than the reference's and
-  at most rel 0.25 more.  The cause is the port's attention regions, which
-  compute the q/k/v (and in decode the output) projections whole on every
-  ``model`` rank where XLA's partitioner splits them over ``qkv``: reduced
-  Qwen3-4B's decode reads 147,456 against 122,880, the difference exactly
-  half of those projections; in training remat adds its own (both
-  recompute each layer group under "dots", with different saveable
-  sets).  The per-device ``argument_size_in_bytes`` equals the reference's
-  ``memory_analysis`` once the scalar bookkeeping is set aside: the
-  reference's decode ``pos`` (4 bytes) and train ``count`` and key (12
-  bytes), the port's generator state in the train state.
+  reference's compiled step on a (2, 2) mesh of four forced host devices,
+  twelve cases (Qwen3-4B, DeepSeek-V2, RecurrentGemma-2B and xLSTM-350M,
+  prefill, decode and train).  The mixers split their projections over
+  ``model`` as XLA splits the reference's from its rules, so the port's
+  per-device dot FLOPs are never fewer than the reference's and at most
+  rel 0.05 more in serving, 0.10 in training.  Measured: Qwen3-4B,
+  RecurrentGemma-2B and xLSTM-350M equal the reference in all three but
+  xLSTM-350M's train case, 1.0003; DeepSeek-V2 prefill 1.0061 and decode
+  1.0118 (MLA's latent c_kv computed on every ``model`` rank, where
+  ``w_dkv`` is whole) once the reference is charged the expert work its
+  data-axis fault leaves out (its MoE keeps each rank's tokens but splits
+  each expert's d_ff over ``data``; the port gathers the tokens over
+  ``data``, so its router, experts and shared expert run on twice the
+  tokens: :func:`_moe_flops` counts both from the reference's capacity
+  formulas).  DeepSeek-V2's train case is compared without that
+  correction and reads 1.0796: the MoE's doubled work through the forward
+  and backward, and the remat saveable sets ("dots" in both, different
+  sets saved).  The per-device
+  ``argument_size_in_bytes`` equals the reference's ``memory_analysis``
+  once the scalar bookkeeping is set aside: the reference's decode ``pos``
+  (4 bytes; its ``jit`` drops it where no attention reads it, xLSTM) and
+  train ``count`` and key (12 bytes), the port's generator state in the
+  train state.
+* On a fake (1, 4) decode of reduced Qwen3-4B and RecurrentGemma-2B, what
+  ``OpStats`` counts as all-gathered is at most the step's projected
+  activations (each layer's (B, 1, ·) q/k/v or RG-LRU input, and the
+  logits; it equals them in both), fewer bytes than the ``qkv`` and
+  ``rnn_state`` weights: no such weight is gathered over ``model``.
+* Loop sampling: reduced RecurrentGemma-2B and xLSTM-350M prefill and
+  train at S = 64 on a fake (2, 2) mesh count the same FLOPs, bytes and
+  collectives (by kind) with ``OpStats(sample_loops=True)`` as with every
+  step run (each after one unsampled warm-up count: DTensor's first
+  dispatch of a region's ops adds its own); sampling on real tensors
+  raises.
 * Fake against real: reduced Qwen3-4B's train step counted on a fake
   (1, 4) and (2, 2) mesh gives the FLOPs and collective counts the same
   counters give on the real gloo run of that step, exactly.
@@ -39,6 +61,7 @@ against the JAX package's ``hlo_stats`` and dry run.
 """
 import datetime
 import json
+import math
 import os
 import subprocess
 import sys
@@ -62,12 +85,15 @@ RULE_CASES = {"long-qwen3-4b": ("qwen3-4b", LONG_RULES),
               "vocab-whisper-small": ("whisper-small", VOCAB_RULES)}
 B_RULES, S_RULES, EXTRA = 2, 16, 4
 # (arch, kind) at (2, 2): B, S
-COUNT_CASES = {("qwen3-4b", "prefill"): (4, 64), ("qwen3-4b", "decode"): (4, 64),
-               ("qwen3-4b", "train"): (4, 64),
-               ("deepseek-v2-236b", "prefill"): (4, 64)}
-REL_FLOPS = 0.25
+COUNT_ARCHS = ("qwen3-4b", "deepseek-v2-236b", "recurrentgemma-2b",
+               "xlstm-350m")
+COUNT_CASES = {(a, k): (4, 64) for a in COUNT_ARCHS
+               for k in ("prefill", "decode", "train")}
+REL_FLOPS = {"prefill": 0.05, "decode": 0.05, "train": 0.10}
+COUNT_MESH = (2, 2)          # (data, model)
 # the reference's scalar arguments the port passes on the host or not at all
 REF_SCALARS = {"prefill": 0, "decode": 4, "train": 12}
+ATTN_KINDS = ("attn", "attn_local", "mla")
 PRODUCTION_S = 120
 REAL_SHAPES = ((1, 4), (2, 2))
 REAL_STEP = (4, 32)          # B, S of the fake-against-real train step
@@ -281,7 +307,8 @@ def _reference_counts(out):
     from repro.train.train_step import make_train_step
     from repro.launch.dryrun import _axes_to_sharding, _opt_axes_like
     load_all()
-    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(COUNT_MESH),
+                ("data", "model"))
     res = {}
     for (arch, kind), (B, S) in COUNT_CASES.items():
         cfg = shapes.reduced_config(arch)
@@ -330,7 +357,7 @@ def _port_counts():
     load_all()
     start_fake_group(4)
     try:
-        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        mesh = make_mesh(COUNT_MESH, ("data", "model"), "cpu")
         res = {}
         for (arch, kind), (B, S) in COUNT_CASES.items():
             cfg = shapes.reduced_config(arch)
@@ -357,16 +384,150 @@ def counts(tmp_path_factory):
     return port, _load(out)
 
 
+def _moe_flops(cfg, kind: str, t: int, data: int, n: int) -> float:
+    """Dot FLOPs of one MoE layer on a rank that routes ``t`` tokens with
+    ``n`` expert shards and each expert's d_ff split over ``data``, from
+    the reference's capacity formulas (``_moe_local`` for a sequence that
+    splits over the experts' axis, ``_moe_replicated_local`` for a decode
+    step): router, capacity-padded expert buffers, shared expert."""
+    mo, d = cfg.moe, cfg.d_model
+    e_loc, f_loc = mo.n_experts // n, mo.d_expert // data
+    if kind == "decode":
+        cap = math.ceil(t * mo.top_k / e_loc * mo.capacity_factor)
+    else:
+        cap1 = math.ceil(t * mo.top_k / n * mo.capacity_factor)
+        cap = math.ceil(n * cap1 / e_loc * mo.capacity_factor)
+    return (2 * t * d * mo.n_experts + e_loc * cap * 3 * 2 * d * f_loc
+            + 3 * 2 * t * d * mo.n_shared * f_loc)
+
+
+def _moe_left_out(cfg, kind: str, B: int, S: int) -> float:
+    """The expert work per device the reference's data-axis fault leaves
+    out of a serving step at COUNT_MESH: the port routes each rank's tokens
+    gathered over ``data`` (``data`` times the reference's), the right
+    count for experts whose d_ff is split over ``data``."""
+    data, n = COUNT_MESH
+    if cfg.moe is None or kind == "train" or data == 1:
+        return 0.0
+    t = B // data * (1 if kind == "decode" else S // n)
+    per_layer = _moe_flops(cfg, kind, data * t, data, n) \
+        - _moe_flops(cfg, kind, t, data, n)
+    return per_layer * len(cfg.block_kinds())
+
+
 @pytest.mark.parametrize("case", [f"{a}/{k}" for a, k in COUNT_CASES])
 def test_op_stats_flops_match_hlo_stats_at_2x2(counts, case):
+    from repro_torch.configs import load_all, shapes
+    load_all()
     port, ref = counts
-    kind = case.split("/")[1]
+    arch, kind = case.split("/")
+    cfg = shapes.reduced_config(arch)
     want = float(ref[f"{case}/flops"])
     assert want > 0
-    assert want <= port[f"{case}/flops"] <= (1 + REL_FLOPS) * want, \
+    want += _moe_left_out(cfg, kind, *COUNT_CASES[(arch, kind)])
+    assert want <= port[f"{case}/flops"] <= (1 + REL_FLOPS[kind]) * want, \
         (port[f"{case}/flops"], want)
     rng = torch.Generator().get_state().numel() if kind == "train" else 0
-    assert port[f"{case}/args"] - rng == int(ref[f"{case}/args"]) - REF_SCALARS[kind]
+    # the reference's jit drops a decode ``pos`` that no attention reads
+    scalars = REF_SCALARS[kind] if kind != "decode" or any(
+        k in ATTN_KINDS for k in cfg.block_kinds()) else 0
+    assert port[f"{case}/args"] - rng == int(ref[f"{case}/args"]) - scalars
+
+
+def _activation_bytes(cfg, B: int) -> int:
+    """The float32 bytes of a decode step's projected activations: each
+    layer's (B, 1, ·) q, k, v (attention) or input u (RG-LRU), and the
+    logits."""
+    per = {"attn": cfg.q_dim + 2 * cfg.kv_dim, "attn_local": cfg.q_dim + 2 * cfg.kv_dim,
+           "rglru": cfg.rnn_state_dim or cfg.d_model}
+    return 4 * B * (sum(per[k] for k in cfg.block_kinds()) + cfg.vocab_size)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "recurrentgemma-2b"])
+def test_decode_gathers_activations_not_weights_at_1x4(arch):
+    """A fake (1, 4) decode step: every all-gather is over ``model``, and
+    together they move no more than the step's projected activations,
+    fewer bytes than the ``qkv`` and ``rnn_state`` weights that a step
+    gathering its weights would move."""
+    import torch.distributed as dist
+    from repro_torch.configs import load_all, shapes
+    from repro_torch.launch.dryrun import count_step, start_fake_group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import DEFAULT_RULES
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import model_defs
+    load_all()
+    cfg = shapes.reduced_config(arch)
+    B = 4
+    start_fake_group(4)
+    try:
+        st = count_step(cfg, "decode", B, 64, make_mesh((1, 4), ("data", "model"),
+                                                        "cpu"),
+                        DEFAULT_RULES, device="cpu")["op_stats"]
+    finally:
+        dist.destroy_process_group()
+    weights = []
+    tree_map(lambda pd: weights.append(4 * math.prod(pd.shape))
+             if len(pd.shape) == 2 and {"qkv", "rnn_state"} & set(pd.axes)
+             else None, model_defs(cfg))
+    gathered = st["collective_bytes"]["all-gather"]
+    assert st["collective_counts"]["all-gather"] > 0
+    assert gathered <= _activation_bytes(cfg, B) < sum(weights), \
+        (gathered, _activation_bytes(cfg, B), sum(weights))
+
+
+SAMPLE_CASES = [(a, k) for a in ("recurrentgemma-2b", "xlstm-350m")
+                for k in ("prefill", "train")]
+
+
+@pytest.mark.parametrize("arch,kind", SAMPLE_CASES)
+def test_sampled_loops_count_exactly(arch, kind):
+    """The per-token loops counted from a few steps equal every step run:
+    FLOPs, bytes and each kind of collective, at S = 64 on a fake (2, 2)
+    mesh (a warm-up count first: DTensor's first dispatch of the step's
+    ops adds ops of its own to whichever count runs first)."""
+    import torch.distributed as dist
+    from repro_torch.configs import load_all, shapes
+    from repro_torch.launch.dryrun import count_step, start_fake_group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import DEFAULT_RULES
+    load_all()
+    cfg = shapes.reduced_config(arch)
+    start_fake_group(4)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        got = [count_step(cfg, kind, 4, 64, mesh, DEFAULT_RULES, device="cpu",
+                          sample_loops=s)["op_stats"] for s in (False, False, True)]
+    finally:
+        dist.destroy_process_group()
+    full, sampled = got[1], got[2]
+    assert full["flops"] > 0 and sampled["flops"] == full["flops"]
+    assert sampled["bytes"] == full["bytes"]
+    assert sampled["collective_bytes"] == full["collective_bytes"]
+    assert sampled["collective_counts"] == full["collective_counts"]
+
+
+def test_loop_sampling_on_real_tensors_raises():
+    """Sampling stands in for steps it does not run, so it takes fake
+    tensors only; an unsampled count runs every step."""
+    from repro_torch.models.loops import token_loop
+    from repro_torch.roofline.op_stats import OpStats
+
+    def step(c, x, k):
+        h = x[0] * c[0] + x[1]
+        return (h,), h
+
+    a, b, h0 = torch.rand(2, 9, 3), torch.rand(2, 9, 3), torch.zeros(2, 3)
+    with pytest.raises(RuntimeError, match="fake tensors only"):
+        with OpStats(sample_loops=True):
+            token_loop(step, (h0,), (a, b), 9)
+    with OpStats() as st:
+        (h,), hs = token_loop(step, (h0,), (a, b), 9)
+    assert hs.shape == (2, 9, 3) and st.stats()["bytes"] > 0
+    want = h0
+    for t in range(9):
+        want = a[:, t] * want + b[:, t]
+    assert torch.equal(h, want)
 
 
 # ---------------------------------------------------------------------------

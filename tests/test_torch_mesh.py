@@ -30,6 +30,10 @@ throughout; tolerance rel 1e-5 of max |reference|.
   no-mesh path; the reference's padded-head path pads ``wo`` at the end,
   not group by group, and is shown off (by more than 100 times the
   tolerance).
+* Straddled heads (xLSTM with 2 and 3 heads of 16 at model = 4, whose
+  ``qkv`` columns split inside heads and across head boundaries): the port
+  on (1, 4) equals the reference on the same mesh (logits and caches) and
+  its own no-mesh path.
 * The MoE alone at (1, 4) and capacity 1.25: the port's output equals the
   reference's and its dropped pairs equal the count the reference's drop
   rule gives on the reference's own routing.  At (2, 2) and 1.0 the same against
@@ -70,6 +74,14 @@ CASES["padded"] = ("qwen3-4b", (1, 4), "heads", S_OWN, None, (10, 2))
 # rows; 4, 4, 4, 2 slots); the MoE's prefill takes the replicated body
 CASES.update({f"uneven-{a}": (a, (1, 4), "seq", 10, NO_DROPS, None)
               for a in ("qwen3-4b", "deepseek-v2-236b")})
+# xLSTM with heads that do not fill whole ranks at model = 4: with 2 heads
+# each rank's qkv columns lie inside one head (the mLSTM splits a head's
+# value columns; two ranks touch each sLSTM head, one computes it); with 3
+# heads ranks 1 and 2 straddle two heads (the mLSTM exchanges whole heads,
+# the sLSTM runs a head on every rank that touches it)
+CASES.update({f"heads{h}-xlstm-350m": ("xlstm-350m", (1, 4), "seq", 64, None,
+                                       (h, h)) for h in (2, 3)})
+STRADDLE = [n for n in CASES if n.startswith("heads")]
 MOE_CASE = dict(arch="deepseek-v2-236b", shape=(1, 4), S=16, cf=1.25)
 # (2, 2) routes each token batch over two model shards, which hold twice
 # the pairs' room of (1, 4)'s; at 1.0 this batch still drops pairs
@@ -292,7 +304,8 @@ def _reference_main(wdir, out):
         return np.asarray(logits), caches, np.asarray(dec)
 
     for name, (arch, shape, mode, S, _, _) in CASES.items():
-        if not (name.startswith("ref14") or name == "padded"
+        if not (name.startswith("ref14") or name in STRADDLE
+                or name == "padded"
                 or (name.startswith("own22") and mode == "seq"
                     and arch in MOE_ARCHS)):
             continue
@@ -304,7 +317,7 @@ def _reference_main(wdir, out):
         batch = {k: jnp.asarray(v) for k, v in batch.items()}
         tok = jnp.asarray(tok)
         got = {}
-        if name.startswith("ref14"):
+        if name.startswith("ref14") or name in STRADDLE:
             logits, caches, dec = run(model, params, batch, tok, S,
                                       mesh_of(shape))
             got = {"prefill": logits, "decode": dec}
@@ -509,6 +522,28 @@ def test_uneven_shards_match_no_mesh(runs, plain, name):
     prefill, decode = plain[name]
     assert _rel(got["prefill"], prefill) < REL
     assert _rel(got["decode"], decode) < REL
+
+
+@pytest.mark.parametrize("name", STRADDLE)
+def test_straddled_heads_match_reference_and_no_mesh(runs, plain, name):
+    """xLSTM's mLSTM and sLSTM with heads that do not divide the model
+    axis: prefill and decode logits and every prefill cache leaf against
+    the reference on (1, 4), and the logits against the port's no-mesh
+    path."""
+    got, want = runs[name]
+    prefill, decode = plain[name]
+    for step, mine in (("prefill", prefill), ("decode", decode)):
+        assert got[step].shape == want[step].shape
+        assert _rel(got[step], want[step]) < REL, step
+        assert _rel(got[step], mine) < REL, step
+    keys = [k for k in want if k.startswith("cache/")]
+    assert keys
+    for k in keys:
+        _, gk, key, leaf = k.split("/")
+        for g in range(want[k].shape[0]):
+            mine = got[f"cache/{gk}/{g}/{key}/{leaf}"]
+            assert mine.shape == want[k][g].shape, k
+            assert _rel(mine, want[k][g]) < REL, k
 
 
 def test_padded_heads_match_no_mesh(runs, plain):

@@ -16,7 +16,10 @@ outside and called inside reuses the no-mesh trace.  Float32 throughout.
   DeepSeek-V2 (capacity factor 1.25: both drop the same pairs), RecurrentGemma-2B,
   xLSTM-350M and Whisper-small; S = 1024 where causal global attention
   runs (``parity_seq``).  Loss and grad norm within rel 1e-5, every
-  parameter and moment leaf within rel 1e-5 of its max.
+  parameter and moment leaf within rel 1e-5 of its max.  The same for
+  xLSTM with 2 and 3 heads of 16, whose ``qkv`` columns split inside heads
+  and across head boundaries at model = 4, whose (1, 4) step is also held
+  to the port's no-mesh step.
 * (2, 2), both attention modes: loss and gradients of ``loss_fn`` on the
   mesh against the port's no-mesh path (MoE models at capacity factor 100,
   ``aux_weight=0``: the mesh's auxiliary loss is the mean of each shard's,
@@ -68,6 +71,9 @@ NO_DROPS = 100.0     # a capacity factor at which nothing drops
 OPT = dict(lr=1e-3, warmup_steps=2, eps=1e-3)
 REF_ARCHS = ("qwen3-4b", "deepseek-v2-236b", "recurrentgemma-2b",
              "xlstm-350m", "whisper-small")
+# xLSTM with heads that do not divide the model axis (tests/test_torch_mesh.py)
+STRADDLE = {f"xlstm-350m-heads{h}": h for h in (2, 3)}
+REF_CASES = REF_ARCHS + tuple(STRADDLE)
 # name -> (arch, attention mode); all at (2, 2) against the no-mesh path
 OWN = {f"own22-{a}-seq": (a, "seq") for a in REF_ARCHS}
 OWN.update({f"own22-{a}-heads": (a, "heads")
@@ -87,6 +93,16 @@ def config(shapes, arch, cf=None):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cf))
     return cfg
+
+
+def ref_config(shapes, name):
+    """The config of a (1, 4) case against the reference: an arch's, or
+    xLSTM's with a STRADDLE case's heads."""
+    if name in STRADDLE:
+        h = STRADDLE[name]
+        return dataclasses.replace(config(shapes, "xlstm-350m"), n_heads=h,
+                                   n_kv_heads=h)
+    return config(shapes, name)
 
 
 def parity_seq(cfg) -> int:
@@ -189,8 +205,8 @@ def _rank_main(rank, world, store_path, wdir, out):
         mesh22 = make_host_mesh("cpu", (2, 2))
         opt_cfg = AdamWConfig(**OPT)
         # (1, 4) against the reference: one train step
-        for arch in REF_ARCHS:
-            cfg = config(shapes, arch)
+        for arch in REF_CASES:
+            cfg = ref_config(shapes, arch)
             w = unflatten(_load(f"{wdir}/ref-{arch}.npz"))
             zeros = {k: np.zeros_like(v) for k, v in flatten(w).items()}
             conv = train_state_from_jax(cfg, {"params": w, "opt": {
@@ -343,8 +359,8 @@ def _reference_main(wdir, out):
         return Mesh(np.array(jax.devices()[:n]).reshape(shape), ("data", "model"))
 
     jcfg = jopt.AdamWConfig(**OPT)
-    for arch in REF_ARCHS:
-        cfg = config(shapes, arch)
+    for arch in REF_CASES:
+        cfg = ref_config(shapes, arch)
         model = Model(cfg)
         params = jax.tree_util.tree_map(
             jnp.asarray, unflatten(_load(f"{wdir}/ref-{arch}.npz")))
@@ -389,8 +405,8 @@ def runs(tmp_path_factory):
     wdir, port, ref = (base / "weights", base / "port", base / "ref")
     for d in (wdir, port, ref):
         d.mkdir()
-    for i, arch in enumerate(REF_ARCHS):
-        cfg = config(shapes, arch)
+    for i, arch in enumerate(REF_CASES):
+        cfg = ref_config(shapes, arch)
         params = _draw(JaxModel(cfg).param_defs(), np.random.default_rng(i))
         np.savez(wdir / f"ref-{arch}.npz", **flatten(params))
         np.savez(wdir / f"batch-ref-{arch}.npz",
@@ -457,7 +473,7 @@ def _port_layout(cfg, flat):
                        "v": conv["opt"]["v"]})
 
 
-@pytest.mark.parametrize("arch", REF_ARCHS)
+@pytest.mark.parametrize("arch", REF_CASES)
 def test_train_step_matches_reference_at_1x4(runs, arch):
     """One step of 2 microbatches on (1, 4) against the reference's on the
     same mesh: loss, grad norm, every parameter and moment leaf."""
@@ -467,11 +483,39 @@ def test_train_step_matches_reference_at_1x4(runs, arch):
     want = _load(runs["ref"] / f"ref-{arch}.npz")
     for k in ("loss", "grad_norm"):
         assert abs(float(got[k]) - float(want[k])) <= REL * abs(float(want[k])), k
-    leaves = _port_layout(config(shapes, arch), want)
+    leaves = _port_layout(ref_config(shapes, arch), want)
     assert set(leaves) == {k for k in got if k not in ("loss", "grad_norm")}
     for k, w in leaves.items():
         assert got[k].shape == w.shape, k
         assert _rel(got[k], w) < REL, k
+
+
+@pytest.mark.parametrize("name", list(STRADDLE))
+def test_straddled_heads_train_step_matches_no_mesh(runs, name):
+    """The (1, 4) step of xLSTM with heads that do not divide the model
+    axis against the port's no-mesh step from the same state: loss, grad
+    norm and every parameter and moment leaf."""
+    from repro_torch.configs import load_all, shapes
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_step import init_train_state
+    load_all()
+    cfg = ref_config(shapes, name)
+    w = unflatten(_load(runs["weights"] / f"ref-{name}.npz"))
+    model = Model.from_params(cfg, lm_params_from_jax(cfg, w), device="cpu")
+    opt_cfg = AdamWConfig(**OPT)
+    state = init_train_state(model, opt_cfg)         # zero moments
+    step = make_train_step(model, opt_cfg, microbatches=2, remat=True)
+    state, met = step(state, _load(runs["weights"] / f"batch-ref-{name}.npz"))
+    want = _flat_state(state)
+    got = _load(runs["port"] / f"ref-{name}.npz")
+    assert abs(float(got["loss"]) - float(met["loss"])) <= REL * abs(float(met["loss"]))
+    assert abs(float(got["grad_norm"]) - float(met["grad_norm"])) \
+        <= REL * abs(float(met["grad_norm"]))
+    assert set(want) == {k for k in got if k not in ("loss", "grad_norm")}
+    for k, v in want.items():
+        assert _rel(got[k], v) < REL, k
 
 
 @pytest.mark.parametrize("name", list(OWN))

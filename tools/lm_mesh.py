@@ -6,6 +6,7 @@ every visible card (up to four): ``chip_smoke.py``'s ``[lm-mesh]`` and
     python3 tools/lm_mesh.py --depth 26 28 30     # bf16 runs at (1, N)
     python3 tools/lm_mesh.py --depth 4 --mesh 2 2  # bf16 runs at (2, 2)
     python3 tools/lm_mesh.py --train              # [lm-mesh-train] runs
+    python3 tools/lm_mesh.py --train --train-runs parity   # only those
     python3 tools/lm_mesh.py --train-depth 1 2 3  # DeepSeek-V2 training cuts
     python3 tools/lm_mesh.py --dp                 # the [lm-mesh-dp] phase
 
@@ -19,8 +20,12 @@ Qwen3-4B at published width and full depth trained by
 remat off, then the same step timed and profiled; DeepSeek-V2 at 4 of 60
 layers (bf16, int8 moments, capacity factor 1.25) at (1, 4) and (2, 2),
 two steps and one profiled; Qwen3-4B (4 of 36 layers, float32 compute)
-against the no-mesh step at (1, 4) and (2, 2), remat "dots" and off.  On
-one card it runs the smoke's (1, 1) runs.  ``--train-depth`` trains
+against the no-mesh step at (1, 4) and (2, 2), remat "dots" and off, each
+profiled.  A profiled step prints each rank's device and NCCL ms, and the
+step after it each rank's collective bytes (``OpStats``).
+``--train-runs`` keeps the runs of the kinds it names (``loop``: the
+full-depth Qwen3-4B, ``moe``: DeepSeek-V2, ``parity``: the 4-layer
+Qwen3-4B).  On one card it runs the smoke's (1, 1) runs.  ``--train-depth`` trains
 DeepSeek-V2 (bf16, int8 moments) two steps at each depth on a (1, N) mesh
 and prints each rank's peak memory; a depth is held when the peak leaves a
 fifth of the card free.
@@ -60,6 +65,9 @@ def main(argv=None):
                     help="the mesh of the --depth runs (default 1 x cards)")
     ap.add_argument("--train", action="store_true",
                     help="the [lm-mesh-train] runs on every visible card")
+    ap.add_argument("--train-runs", nargs="+", default=["loop", "moe", "parity"],
+                    choices=["loop", "moe", "parity"],
+                    help="the kinds of --train run to make (default all)")
     ap.add_argument("--train-depth", type=int, nargs="*", default=None,
                     help="layer counts of DeepSeek-V2 training runs at (1, N)")
     ap.add_argument("--dp", action="store_true",
@@ -76,7 +84,7 @@ def main(argv=None):
     if args.dp:
         return chip_smoke.phase_lm_mesh_dp(card, world)
     if args.train:
-        return train(world)
+        return train(world, args.train_runs)
     if args.train_depth:
         return train_depth(world, args.train_depth)
     if not args.depth:
@@ -105,8 +113,9 @@ def main(argv=None):
           f"{held} layers")
 
 
-def train(world):
-    """The [lm-mesh-train] runs on ``world`` cards (the smoke's on one)."""
+def train(world, kinds=("loop", "moe", "parity")):
+    """The [lm-mesh-train] runs of ``kinds`` on ``world`` cards (the
+    smoke's on one)."""
     cs = chip_smoke
     t0 = time.perf_counter()
     os.makedirs("build", exist_ok=True)
@@ -120,8 +129,9 @@ def train(world):
                  for shape in meshes]
         runs += [cs.lm_mesh_train_run("parity", cs.LM_MESH_GQA, shape,
                                       cs.LM_MESH_GQA_LAYERS,
-                                      remats=["dots", "off"])
+                                      remats=["dots", "off"], profile=True)
                  for shape in meshes]
+    runs = [r for r in runs if r["kind"] in kinds]
     report = cs.lm_mesh_spawn({"runs": runs, "build": "build"}, world,
                               "train", target=cs._lm_mesh_train_rank,
                               timeout=1800)
