@@ -23,7 +23,8 @@ with ``run_cell``'s fields.  Where the reference has no counterpart:
 ``lower_s``/``compile_s`` become ``trace_s`` (the seconds the fake step
 took; the per-token loops of RG-LRU and sLSTM are counted from a few steps,
 exactly, as ``hlo_stats`` scales a loop body by its trip count:
-:func:`~repro_torch.models.loops.token_loop`); ``cost_analysis`` and
+:func:`~repro_torch.models.loops.token_loop`), counted warm after a
+one-group step (``warmup_s``, :func:`count_step`); ``cost_analysis`` and
 ``hlo_chars`` are not written; ``--save-hlo`` is left out (there is no HLO; ``op_stats`` holds the counts).  The memory
 entries: ``argument_size_in_bytes`` is this rank's shard of every input
 (the batch rows the rules give it), ``output_size_in_bytes`` its share of
@@ -41,6 +42,7 @@ record says which; the counts depend on shapes and dtypes only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -197,16 +199,41 @@ def build_step(cfg: ModelConfig, kind: str, B: int, S: int, mesh, rules, *,
             (params, tokens, caches), extra)
 
 
+def one_group(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` cut to one layer group (and at most one tail group and one
+    encoder layer): the layers of a group run the same ops at the same
+    shapes as every other group's."""
+    tail = min(cfg.n_tail, 1)
+    return dataclasses.replace(
+        cfg, n_layers=len(cfg.pattern) + tail * len(cfg.tail_pattern),
+        n_tail=tail, encoder_layers=min(cfg.encoder_layers, 1))
+
+
 def count_step(cfg: ModelConfig, kind: str, B: int, S: int, mesh, rules, *,
                microbatches: int = 1, cache_dtype: str = "bfloat16",
-               device: str = "cuda", sample_loops: bool = True) -> dict:
+               device: str = "cuda", sample_loops: bool = True,
+               warm: bool = True) -> dict:
     """A record's measured fields for one fake step on ``mesh`` (a mesh of
     a fake process group): ``memory_analysis``, ``op_stats``, the
-    collectives and ``trace_s``.  The per-token loops are counted from a
-    few steps (``OpStats(sample_loops=True)``), exactly; ``sample_loops``
-    False runs every step."""
+    collectives, ``trace_s`` and ``warmup_s``.  The per-token loops are
+    counted from a few steps (``OpStats(sample_loops=True)``), exactly;
+    ``sample_loops`` False runs every step.
+
+    DTensor's first dispatch of an op at a sharding and shape runs the op
+    on fake tensors of the global shapes to propagate its sharding, and
+    those ops reach the counting mode; later dispatches hit its cache.  So
+    with ``warm`` (the default) the step of :func:`one_group` of ``cfg``
+    runs first, uncounted: it dispatches every DTensor op the whole step
+    does, at the same shapes, for a fraction of its time, and the count
+    is then the same as in a process that ran the step before."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.roofline.op_stats import OpStats
+    t0 = time.time()
+    if warm:
+        count_step(one_group(cfg), kind, B, S, mesh, rules,
+                   microbatches=microbatches, cache_dtype=cache_dtype,
+                   device=device, sample_loops=sample_loops, warm=False)
+    warmup_s = time.time() - t0
     t0 = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True):
         run, args, rec = build_step(cfg, kind, B, S, mesh, rules,
@@ -220,7 +247,7 @@ def count_step(cfg: ModelConfig, kind: str, B: int, S: int, mesh, rules, *,
             out_bytes = _local_bytes(out, mesh, B)
     stats = mode.stats()
     rec.update(
-        trace_s=round(time.time() - t0, 2),
+        trace_s=round(time.time() - t0, 2), warmup_s=round(warmup_s, 2),
         memory_analysis={
             "argument_size_in_bytes": arg_bytes,
             "output_size_in_bytes": out_bytes,
@@ -309,7 +336,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
         rec["n_active_params"] = cfg.active_params_estimate()
         rec["model_flops"] = model_flops(cfg, shape)
         rec["status"] = "ok"
-        print(f"[dryrun] {arch} {shape} {mesh_kind}: OK (trace {rec['trace_s']}s)")
+        print(f"[dryrun] {arch} {shape} {mesh_kind}: OK (trace {rec['trace_s']}s "
+              f"after a {rec['warmup_s']}s warm-up)")
         print("  memory_analysis:", rec["memory_analysis"])
         print("  op_stats flops:", rec["op_stats"]["flops"])
     except Exception as e:  # noqa: BLE001 - recorded in the cell

@@ -326,6 +326,9 @@ def attn_defs(cfg) -> Dict[str, Any]:
 KV_CACHE_AXES = {"k": ("batch", "kv_seq", "heads", None),
                  "v": ("batch", "kv_seq", "heads", None)}
 MLA_CACHE_AXES = {"c_kv": ("batch", "kv_seq", "lora")}
+# a cross attention's cache: the encoder's K/V, whole over its positions
+XATTN_CACHE_AXES = {"k": ("batch", None, "heads", None),
+                    "v": ("batch", None, "heads", None)}
 
 # Attention-region sharding mode under a mesh.  'seq' (default) shards the
 # query sequence over 'model'.  'heads' pads the GQA group count so
@@ -554,11 +557,12 @@ def _write_slot_split(cache: torch.Tensor, new: torch.Tensor, pos: int,
     return lo
 
 
-def _split_softmax(s: torch.Tensor, mesh) -> torch.Tensor:
+def _split_softmax(s: torch.Tensor, mesh, axes=None) -> torch.Tensor:
     """This rank's columns of softmax(s, -1) when the last axis of the
-    scores ``s`` (float32, masked with -inf) is split over the ``kv_seq``
-    rule's axes: the max and the sum are taken across the ranks."""
-    axes = rule_axes("kv_seq", mesh)
+    scores ``s`` (float32, masked with -inf) is split over ``axes`` (by
+    default the ``kv_seq`` rule's): the max and the sum are taken across
+    the ranks."""
+    axes = rule_axes("kv_seq", mesh) if axes is None else axes
     if s.shape[-1]:
         m = s.amax(dim=-1)
     else:
@@ -569,10 +573,11 @@ def _split_softmax(s: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _decode_attention_split(q, k_cache, v_cache, pos: int, lo: int, mesh, *,
-                            window: int = 0):
+                            window: int = 0, axes=None):
     """:func:`decode_attention` against this rank's chunk of the cache
     (global slots ``lo``..), the softmax and the value sum across ranks:
-    the reference's split-K decode over ``kv_seq``."""
+    the reference's split-K decode over ``kv_seq`` (or over ``axes``; a
+    ``pos`` at the last slot masks nothing, as a cross attention reads)."""
     B, _, H, dh = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -586,11 +591,11 @@ def _decode_attention_split(q, k_cache, v_cache, pos: int, lo: int, mesh, *,
     if window:
         mask = mask & (idx > pos - window)
     s = s.masked_fill(~mask, -math.inf)
-    p = _split_softmax(s, mesh)
+    axes = rule_axes("kv_seq", mesh) if axes is None else axes
+    p = _split_softmax(s, mesh, axes)
     out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return all_reduce(out, mesh, rule_axes("kv_seq", mesh)) \
-        .reshape(B, 1, H, dh).to(q.dtype)
+    return all_reduce(out, mesh, axes).reshape(B, 1, H, dh).to(q.dtype)
 
 
 def _heads_mode(H: int, Hkv: int, seq_only: bool, mesh):
@@ -657,10 +662,11 @@ def _local_rows(q, k, v, positions, lo: int, hi: int, W: int):
 
 
 def _attn_prefill_mesh(q, k, v, *, prep, qcols, kcols, wo, cfg, cdt, local,
-                       mesh, axis, out_dtype, heads_mode=True):
+                       mesh, axis, out_dtype, heads_mode=True, causal=True):
     """Prefill/train attention from this rank's projection columns ``q``
-    (``qcols``), ``k``, ``v`` (``kcols``), each (B, S, ·), split over
-    ``axis`` as the reference constrains it.  K/V are gathered whole.
+    (``qcols``), (B, S, ·), and ``k``, ``v`` (``kcols``), (B, T, ·): T = S
+    but for a cross attention (``causal`` False, as the encoder's), split
+    over ``axis`` as the reference constrains it.  K/V are gathered whole.
     ``prep(q, k, q_pos, kv_pos)`` turns the exchanged projections into
     heads (qk-norm, RoPE).
 
@@ -676,24 +682,26 @@ def _attn_prefill_mesh(q, k, v, *, prep, qcols, kcols, wo, cfg, cdt, local,
     ``wo`` and the partial outputs are added over ``axis``.  Returns (y,
     the unrepeated K/V whole as the prefill cache)."""
     B, S = q.shape[:2]
+    T = k.shape[1]
     H, dh = cfg.n_heads, cfg.head_dim
     Hkv = kcols[-1][1] // dh            # MLA decompresses K/V to H heads
     me = axis_rank(mesh, axis) if axis else 0
     positions = torch.arange(S, device=q.device)
+    kv_pos = positions if T == S else torch.arange(T, device=q.device)
     k = _gather_cols(k, kcols, mesh, axis)
-    v = _gather_cols(v, kcols, mesh, axis).reshape(B, S, Hkv, dh)
+    v = _gather_cols(v, kcols, mesh, axis).reshape(B, T, Hkv, dh)
     gp = _heads_mode(H, Hkv, local or not heads_mode, mesh)
     if gp is None:
         _same_axis(mesh, "seq_shard", axis)
         rows = rank_chunks(S, mesh, axis)
         lo, hi = rows[me]
         q = exchange(q, mesh, axis, -1, qcols, 1, rows)
-        q, k = prep(q, k, positions[lo:hi], positions)
+        q, k = prep(q, k, positions[lo:hi], kv_pos)
         if local:
             o = _local_rows(q, k, v, positions, lo, hi, cfg.local_window)
         else:
-            o = blockwise_attention(q, k, v, positions[lo:hi], positions,
-                                    causal=True)
+            o = blockwise_attention(q, k, v, positions[lo:hi], kv_pos,
+                                    causal=causal)
         o = exchange(o.reshape(B, hi - lo, H * dh), mesh, axis, 1, rows, -1,
                      qcols)
     else:
@@ -774,6 +782,82 @@ def _attn_on_mesh(p, x, *, cfg, mode, cache, pos, local, mesh, kv_len):
     return y, (kv if mode == "prefill" else None)
 
 
+def bidir_attn_mesh(p, x, *, cfg, kv=None, keep_kv=False):
+    """Bidirectional (encoder) or cross attention (K/V from ``kv``) of the
+    DTensor ``x``: a region over each rank's ``qkv`` shard of the
+    projections (:func:`_bidir_on_mesh`).  Returns (y, the cross
+    attention's K/V with ``keep_kv``, else None)."""
+    return mixer_region(_bidir_on_mesh, p, x, axes=ATTN_REGION_AXES,
+                        cache_axes=XATTN_CACHE_AXES,
+                        split=_attn_split(cfg, "train", True),
+                        acts=None if kv is None else {"kv": kv}, cfg=cfg,
+                        keep_kv=keep_kv)
+
+
+def xattn_decode_mesh(p, x, k_cache, v_cache, *, cfg):
+    """A decode step's cross attention of the DTensor ``x`` against the
+    encoder's cached K/V: a region (:func:`_xattn_decode_mesh`)."""
+    return mixer_region(_xattn_decode_mesh, p, x, axes=ATTN_REGION_AXES,
+                        cache={"k": k_cache, "v": v_cache},
+                        cache_axes=XATTN_CACHE_AXES,
+                        split=rule_axes("qkv"), cfg=cfg)[0]
+
+
+def _bidir_on_mesh(p, x, *, cfg, cache, mesh, kv=None, keep_kv=False):
+    """:func:`~repro_torch.models.transformer._bidir_attn_apply` on this
+    rank's batch rows, as the decoder's 'seq' region
+    (:func:`_attn_prefill_mesh`): each rank projects with its columns of
+    ``wq``/``wk``/``wv``, q moves from columns to this rank's query rows
+    and the output back, K/V (of
+    ``x``, or of the encoder output ``kv``) are gathered whole, and this
+    rank's rows of ``wo`` meet its output columns before an all-reduce.
+    With ``keep_kv`` the gathered K/V are returned as the cross
+    attention's cache, (B, T, Hkv, dh) each."""
+    B, S, D = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = torch_dtype(cfg.compute_dtype)
+    axis = one_axis("qkv", mesh)
+    xq = x.to(cdt)
+    src = xq if kv is None else kv.to(cdt)
+    T = src.shape[1]
+
+    def prep(q, k, q_pos, kv_pos):
+        return q.reshape(B, q.shape[1], H, dh), k.reshape(B, T, Hkv, dh)
+
+    y, kvc = _attn_prefill_mesh(
+        xq @ p["wq"].to(cdt), src @ p["wk"].to(cdt), src @ p["wv"].to(cdt),
+        prep=prep, qcols=rank_chunks(H * dh, mesh, axis),
+        kcols=rank_chunks(Hkv * dh, mesh, axis), wo=p["wo"], cfg=cfg, cdt=cdt,
+        local=False, mesh=mesh, axis=axis, out_dtype=x.dtype,
+        heads_mode=False, causal=False)
+    return y, (kvc if keep_kv else None)
+
+
+def _xattn_decode_mesh(p, x, *, cfg, cache, mesh):
+    """:func:`~repro_torch.models.transformer._xattn_cached` on this rank's
+    batch rows, as the decoder's decode step: each rank projects its
+    ``wq`` columns, the (B, 1, ·) queries are gathered whole, each rank
+    attends over its rows of the encoder positions (the cache is whole on
+    every rank) by the decoder's split-K decode over ``qkv``'s axis
+    (:func:`_decode_attention_split`), and its output columns meet its rows
+    of ``wo`` before an all-reduce."""
+    B = x.shape[0]
+    H, dh = cfg.n_heads, cfg.head_dim
+    cdt = torch_dtype(cfg.compute_dtype)
+    axis = one_axis("qkv", mesh)
+    me = axis_rank(mesh, axis) if axis else 0
+    qcols = rank_chunks(H * dh, mesh, axis)
+    q = _gather_cols(x.to(cdt) @ p["wq"].to(cdt), qcols, mesh, axis)
+    T = cache["k"].shape[1]
+    lo, hi = rank_chunks(T, mesh, axis)[me]
+    o = _decode_attention_split(q.reshape(B, 1, H, dh), cache["k"][:, lo:hi],
+                                cache["v"][:, lo:hi], T - 1, lo, mesh,
+                                axes=axis)
+    c0, c1 = qcols[me]
+    y = o.reshape(B, 1, H * dh)[..., c0:c1] @ p["wo"].to(cdt)
+    return all_reduce(y, mesh, axis).to(x.dtype), None
+
+
 def _pad_heads(t, c0: int, c1: int, dh: int):
     """The columns [c0, c1) of a flattened (heads, dh) last dim, zero-padded
     to whole heads and split into them: (..., heads, dh)."""
@@ -785,9 +869,10 @@ def _pad_heads(t, c0: int, c1: int, dh: int):
 def _mla_on_mesh(p, x, *, cfg, mode, cache, pos, mesh, kv_len):
     """:func:`mla_apply` on this rank's batch rows: its ``qkv`` columns of
     ``wq``, ``w_uk`` and ``w_uv`` and its rows of ``wo``; ``w_dkv`` whole
-    (``lora`` replicated), so every rank computes the same latent c_kv.
-    Prefill and training decompress this rank's columns of K/V and run
-    :func:`_attn_prefill_mesh` in 'seq' mode.  A decode step keeps the
+    (``lora`` replicated).  Each rank computes the latent c_kv of its rows
+    (of the sequence; of the batch in a decode step) and the rows are
+    gathered.  Prefill and training decompress this rank's columns of K/V
+    and run :func:`_attn_prefill_mesh` in 'seq' mode.  A decode step keeps the
     absorbed form: each rank absorbs its columns of ``w_uk`` into its
     columns of q (the heads they touch, zero-padded), the latent queries
     are added over ``qkv`` into every head, split-K runs over ``kv_seq``
@@ -805,7 +890,14 @@ def _mla_on_mesh(p, x, *, cfg, mode, cache, pos, mesh, kv_len):
     c0, c1 = qcols[me]
     xq = x.to(cdt)
     q = xq @ p["wq"].to(cdt)
-    c_kv = xq @ p["w_dkv"].to(cdt)                          # (B, S, r)
+    # the latent by rows over ``axis``, then gathered whole: the sequence's
+    # rows (where the cache's ``kv_seq`` rows lie), a decode step's one row
+    # by batch rows
+    dim = 0 if mode == "decode" else 1
+    rows = rank_chunks(x.shape[dim], mesh, axis)
+    lo, hi = rows[me]
+    c_kv = exchange(xq.narrow(dim, lo, hi - lo) @ p["w_dkv"].to(cdt), mesh,
+                    axis, dim, rows, dim, [(0, x.shape[dim])] * len(rows))
 
     if mode == "decode":
         c_cache = cache["c_kv"]

@@ -8,6 +8,11 @@ instead (:class:`repro_torch.roofline.op_stats.OpStats` with
 through the dispatch-mode stack, which autograd carries into the threads
 it runs a backward in, so a recomputation under ``torch.utils.checkpoint``
 finds the same hook as the forward did.
+
+Each input is split into its steps once (``x.unbind(1)``), whose backward
+is one ``stack`` of the steps' gradients: a training step moves O(S)
+bytes.  Reading step t as ``x[:, t]`` would give each step's backward a
+zero (B, S, ...) gradient of its own, O(S^2) bytes in all.
 """
 from __future__ import annotations
 
@@ -37,8 +42,15 @@ def token_loop(step: Step, carry: Sequence[torch.Tensor],
     hook = _hook()
     if hook is not None:
         return hook(step, carry, xs, n, consts)
+    return run_steps(step, carry, [x.unbind(1) for x in xs], n, consts)
+
+
+def run_steps(step: Step, carry: Tuple, steps: Sequence[Sequence[torch.Tensor]],
+              n: int, consts: Tuple):
+    """The first ``n`` steps of ``step`` over ``steps`` (each input's
+    per-step tensors); returns (carry, the y_t stacked along dim 1)."""
     ys = []
     for t in range(n):
-        carry, y = step(carry, tuple(x[:, t] for x in xs), consts)
+        carry, y = step(carry, tuple(s[t] for s in steps), consts)
         ys.append(y)
     return carry, torch.stack(ys, dim=1)

@@ -721,7 +721,8 @@ def region(fn, args: Sequence, arg_names: Sequence, out_names: Sequence, *,
 
 
 def mixer_region(fn, p, x, *, axes, cache=None, cache_axes=None, inplace=(),
-                 stored=None, place=True, split: Sequence[str] = (), **kw):
+                 stored=None, place=True, split: Sequence[str] = (),
+                 acts=None, **kw):
     """A mixer under the active mesh: ``fn(p, x, cache=..., mesh=..., **kw)``
     over local shards.  ``x`` enters in the residual stream's layout and
     ``y`` leaves in it.  Each parameter ``k`` enters placed by the logical
@@ -739,10 +740,13 @@ def mixer_region(fn, p, x, *, axes, cache=None, cache_axes=None, inplace=(),
     ``qkv`` or ``rnn_state``, and attention's query rows or heads), over
     which the gradients of ``x`` and of the parameters they hold whole are
     partial (:func:`grad_placements`); a split parameter's gradient leaves
-    as its shard.  Cache lengths need not split evenly, so unlike
-    :func:`region` the outputs are wrapped with explicit global shapes."""
+    as its shard.  ``acts``: other activations, passed to ``fn`` by
+    keyword (a cross attention's encoder output), each entered as ``x``
+    is.  Cache lengths need not split evenly, so unlike :func:`region`
+    the outputs are wrapped with explicit global shapes."""
     mesh = current_mesh()
     stored = stored or {}
+    kw.update({k: _enter(a, ACT, mesh, split) for k, a in (acts or {}).items()})
     p_loc = {k: _enter(v, axes[k], mesh, split) for k, v in p.items()}
     c_loc = None
     if cache is not None:

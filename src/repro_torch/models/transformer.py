@@ -61,10 +61,11 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 
 from .config import ModelConfig, torch_dtype
-from .layers import (KV_CACHE_AXES, MLA_CACHE_AXES, PDef, attn_apply,
-                     attn_defs, blockwise_attention, init_from_defs,
-                     mla_apply, mla_defs, rms_norm, swiglu_apply, swiglu_defs,
-                     tree_leaves, tree_map)
+from .layers import (KV_CACHE_AXES, MLA_CACHE_AXES, XATTN_CACHE_AXES, PDef,
+                     attn_apply, attn_defs, bidir_attn_mesh,
+                     blockwise_attention, init_from_defs, mla_apply, mla_defs,
+                     rms_norm, swiglu_apply, swiglu_defs, tree_leaves,
+                     tree_map, xattn_decode_mesh)
 from .moe import moe_apply, moe_defs
 from .recurrent import (RNN_CACHE_AXES, mlstm_apply, mlstm_defs,
                         rglru_apply, rglru_defs, slstm_apply, slstm_defs)
@@ -161,9 +162,9 @@ def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
              for i, kind in enumerate(pattern)}
         if xattn:  # decode-time cross-attn K/V from the encoder
             for i, _ in enumerate(pattern):
-                kv = PDef((batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim),
-                          ("batch", None, "heads", None))
-                g[f"{i}:xattn"] = {"k": kv, "v": kv}
+                shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+                g[f"{i}:xattn"] = {k: PDef(shape, a)
+                                   for k, a in XATTN_CACHE_AXES.items()}
         return g
 
     out = {"blocks": [group(cfg.pattern, bool(cfg.encoder_layers))
@@ -262,28 +263,16 @@ MIXER_APPLY = {
 }
 
 
-def _gathered_region(fn, p, acts, out_names):
-    """``fn(p, *acts)`` on this rank's batch rows with ``p`` gathered: the
-    regions the reference constrains nothing in (encoder and cross
-    attention), computed alike on every ``model`` rank.  ``acts`` are
-    batch-major DTensors placed by the batch rule; ``out_names`` the
-    outputs' logical axes."""
-    keys = sorted(p)
-    na = len(acts)
-    return region(lambda *a: fn(dict(zip(keys, a[na:])), *a[:na]),
-                  tuple(acts) + tuple(p[k] for k in keys),
-                  [("batch",) + (None,) * (t.dim() - 1) for t in acts]
-                  + [(None,) * p[k].dim() for k in keys], out_names)
-
-
-def _bidir_attn_apply(p, x, *, cfg, kv=None):
-    """Bidirectional (encoder) or cross attention: no mask, no cache."""
+def _bidir_attn_apply(p, x, *, cfg, kv=None, mode="train"):
+    """Bidirectional (encoder) or cross attention: no mask.  On DTensors a
+    region over each rank's ``qkv`` shard of the projections
+    (:func:`~repro_torch.models.layers.bidir_attn_mesh`); a cross
+    attention's prefill there also returns its K/V, the decode steps'
+    cache."""
     if is_dtensor(x):
-        if kv is None:
-            return _gathered_region(lambda p, x: _bidir_attn_apply(
-                p, x, cfg=cfg), p, (x,), (ACT,))
-        return _gathered_region(lambda p, x, kv: _bidir_attn_apply(
-            p, x, cfg=cfg, kv=kv), p, (x, kv), (ACT,))
+        y, kv_cache = bidir_attn_mesh(p, x, cfg=cfg, kv=kv,
+                                      keep_kv=mode == "prefill")
+        return y if kv is None else (y, kv_cache)
     B, S, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = torch_dtype(cfg.compute_dtype)
@@ -297,14 +286,17 @@ def _bidir_attn_apply(p, x, *, cfg, kv=None):
     pos_k = torch.arange(T, device=x.device)
     o = blockwise_attention(q, k, v, pos_q, pos_k, causal=False)
     y = o.reshape(B, S, H * dh) @ p["wo"].to(cdt)
-    return y.to(x.dtype)
+    if kv is None:
+        return y.to(x.dtype)
+    return y.to(x.dtype), (_xattn_kv(p, kv, cfg=cfg) if mode == "prefill"
+                           else None)
 
 
 def _xattn_cached(p, x, k_cache, v_cache, *, cfg):
-    """Cross-attention against precomputed encoder K/V (decode path)."""
+    """Cross-attention against precomputed encoder K/V (decode path).  On
+    DTensors a region (:func:`~repro_torch.models.layers.xattn_decode_mesh`)."""
     if is_dtensor(x):
-        return _gathered_region(lambda p, x, k, v: _xattn_cached(
-            p, x, k, v, cfg=cfg), p, (x, k_cache, v_cache), (ACT,))
+        return xattn_decode_mesh(p, x, k_cache, v_cache, cfg=cfg)
     B, S, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = torch_dtype(cfg.compute_dtype)
@@ -320,13 +312,9 @@ def _xattn_cached(p, x, k_cache, v_cache, *, cfg):
 
 def _xattn_kv(p, enc_out, *, cfg):
     """The cross-attention K/V a decode step reads: the encoder output
-    through wk and wv, computed once at prefill."""
-    if is_dtensor(enc_out):
-        kv = ("batch", None, None, None)
-        k, v = _gathered_region(lambda p, e: tuple(
-            _xattn_kv(p, e, cfg=cfg).values()),
-            {w: p[w] for w in ("wk", "wv")}, (enc_out,), (kv, kv))
-        return {"k": k, "v": v}
+    through wk and wv, computed once at prefill (off a mesh; on one the
+    prefill's cross attention returns them,
+    :func:`~repro_torch.models.layers.bidir_attn_mesh`)."""
     cdt = torch_dtype(cfg.compute_dtype)
     e = enc_out.to(cdt)
     B, T, _ = e.shape
@@ -378,9 +366,8 @@ def _group_step(cfg: ModelConfig, pattern, group: "ParamTree", x, gcache, *,
                 nc_x = gcache[xk]
                 y = _xattn_cached(xp["attn"], h, nc_x["k"], nc_x["v"], cfg=cfg)
             else:
-                y = _bidir_attn_apply(xp["attn"], h, cfg=cfg, kv=enc_out)
-                nc_x = _xattn_kv(xp["attn"], enc_out, cfg=cfg) \
-                    if mode == "prefill" else None
+                y, nc_x = _bidir_attn_apply(xp["attn"], h, cfg=cfg,
+                                            kv=enc_out, mode=mode)
             x = x + y
             if nc_x is not None:
                 new_caches[xk] = nc_x

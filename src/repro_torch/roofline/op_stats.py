@@ -16,6 +16,7 @@ is active, on real or fake tensors (``FakeTensorMode``), and counts:
   queries and bare allocations (``empty``) move nothing and are charged
   nothing.  This is ``hlo_stats``' ``bytes_raw`` convention at the
   granularity of aten ops; XLA's fusions make its ``bytes`` smaller.
+  ``bytes_by_op`` splits them by op name.
 * Collectives: the output-buffer bytes and the count of each collective op
   by kind, under the reference's names (``all-gather``, ``all-reduce``,
   ``reduce-scatter``, ``all-to-all``, ``collective-permute``): the
@@ -41,10 +42,13 @@ step's counts for each step it skips.  Every step runs the same ops on the
 same shapes, so the count is exact; in training the loop's backward is
 counted on the 3- and 4-step graphs and extended the same way (its first
 and last steps differ from the rest, so the counts are affine in the trip
-count from 3 steps on).  The outputs keep their full shapes (the sampled
-steps' values stand in for the rest), so only counts, never values, come
-out of a sampled loop, and asking for one on real tensors raises.  The
-memory peak counts the sampled steps' storages only.
+count from 3 steps on; the ``stack`` that ends the backward of
+``token_loop``'s ``unbind`` grows by one step's gradient per step too).
+FLOPs, bytes and collectives are exact; ``n_ops``, a diagnostic, counts
+the views of the sampled steps only.  The outputs keep their full shapes
+(the sampled steps' values stand in for the rest), so only counts, never
+values, come out of a sampled loop, and asking for one on real tensors
+raises.  The memory peak counts the sampled steps' storages only.
 """
 from __future__ import annotations
 
@@ -55,6 +59,8 @@ from typing import Dict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+from repro_torch.models.loops import run_steps
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -119,6 +125,7 @@ class OpStats(TorchDispatchMode):
         self._flop_fns = flop_registry
         self.flops = 0.0
         self.bytes = 0.0
+        self.op_bytes = defaultdict(float)     # the bytes, by op name
         self.coll = defaultdict(float)
         self.coll_n = defaultdict(int)
         self.n_ops = 0
@@ -155,16 +162,14 @@ class OpStats(TorchDispatchMode):
             raise RuntimeError("loop sampling counts fake tensors only: on "
                                "real tensors every step must run")
         if n <= SAMPLED_STEPS:
-            ys = []
-            for t in range(n):
-                carry, y = step(carry, tuple(x[:, t] for x in xs), consts)
-                ys.append(y)
-            return carry, torch.stack(ys, dim=1)
+            return run_steps(step, carry, [x.unbind(1) for x in xs], n, consts)
         if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
             out = _SampledLoop.apply(self, step, n, len(carry), len(xs),
                                      *tensors)
             return tuple(out[:-1]), out[-1]
-        ys, _, carry = _sample(self, step, carry, xs, consts, n)
+        ys, carry = _sample(self, step, carry,
+                            [x[:, :SAMPLED_STEPS].unbind(1) for x in xs],
+                            consts, n)
         return carry, torch.stack(ys + [ys[-1]] * (n - len(ys)), dim=1)
 
     def _counts(self) -> Dict[str, float]:
@@ -172,6 +177,7 @@ class OpStats(TorchDispatchMode):
         out = {"flops": self.flops, "bytes": self.bytes, "n_ops": self.n_ops}
         out.update({f"coll/{k}": v for k, v in self.coll.items()})
         out.update({f"n/{k}": v for k, v in self.coll_n.items()})
+        out.update({f"op/{k}": v for k, v in self.op_bytes.items()})
         return out
 
     def _add(self, delta: Dict[str, float]):
@@ -183,6 +189,8 @@ class OpStats(TorchDispatchMode):
                 self.coll[k[5:]] += v
             elif v and k.startswith("n/"):
                 self.coll_n[k[2:]] += int(v)
+            elif v and k.startswith("op/"):
+                self.op_bytes[k[3:]] += v
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -209,14 +217,20 @@ class OpStats(TorchDispatchMode):
             self.flops += float(self._flop_fns[pk](*args, **kwargs, out_val=out))
         if not func.is_view and func is not torch.ops.prim.device.default:
             if coll is None and pk.__name__ not in _MOVES_NOTHING:
-                self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+                b = _nbytes((args, kwargs)) + _nbytes(out)
+                self.bytes += b
+                self.op_bytes[name] += b
             self._hold(out, (args, kwargs))
         return out
 
     def stats(self) -> Dict:
-        """``{"flops", "bytes", "collective_bytes", "collective_counts",
-        "n_ops", "peak_bytes", "live_bytes"}``, per device (this rank)."""
+        """``{"flops", "bytes", "bytes_by_op", "collective_bytes",
+        "collective_counts", "n_ops", "peak_bytes", "live_bytes"}``, per
+        device (this rank); ``bytes_by_op`` the bytes of each op name, most
+        first."""
         return {"flops": self.flops, "bytes": self.bytes,
+                "bytes_by_op": dict(sorted(self.op_bytes.items(),
+                                           key=lambda kv: -kv[1])),
                 "collective_bytes": {k: self.coll.get(k, 0.0) for k in COLLECTIVES},
                 "collective_counts": {k: self.coll_n.get(k, 0) for k in COLLECTIVES},
                 "n_ops": self.n_ops, "peak_bytes": self.peak,
@@ -242,40 +256,64 @@ def _diff(a: Dict[str, float], b: Dict[str, float]) -> Dict[str, float]:
     return {k: b.get(k, 0) - a.get(k, 0) for k in set(a) | set(b)}
 
 
-def _sample(mode, step, carry, xs, consts, n):
-    """:data:`SAMPLED_STEPS` steps, the forward counts extended to ``n``:
-    (their outputs, the carries after 3 and after 4 steps)."""
-    ys, carries, snaps = [], [], []
+def _sample(mode, step, carry, steps, consts, n):
+    """:data:`SAMPLED_STEPS` steps over ``steps`` (each input's per-step
+    tensors), the forward counts extended to ``n``: (their outputs, the
+    carry after them)."""
+    ys, snaps = [], []
     for t in range(SAMPLED_STEPS):
-        carry, y = step(carry, tuple(x[:, t] for x in xs), consts)
+        carry, y = step(carry, tuple(s[t] for s in steps), consts)
         ys.append(y)
         if t >= SAMPLED_STEPS - 2:
             snaps.append(mode._counts())
-            carries.append(carry)
     mode._add({k: (n - SAMPLED_STEPS) * v
                for k, v in _diff(snaps[0], snaps[1]).items()})
-    return ys, carries[0], carries[1]
+    return ys, carry
 
 
 class _SampledLoop(torch.autograd.Function):
-    """A sampled loop in training: the forward builds the 4-step graph (its
-    counts extended to ``n``); the backward runs the 3- and 4-step
-    problems through it and extends their difference to ``n`` steps."""
+    """A sampled loop in training.  The forward builds the 4-step graph
+    (its counts extended to ``n``) and, uncounted, the 3-step graph; the
+    backward runs each through its graph and extends their difference to
+    ``n`` steps.  Each graph takes the first 3 or 4 steps of every input
+    as a leaf of its own and unbinds it, as ``token_loop`` unbinds a whole
+    input, so its backward ends in a ``stack`` of its step gradients as a
+    full loop's ends in a ``stack`` of ``n``: that op's bytes grow by one
+    step's gradient read and written per step, which the extension
+    counts.  The inputs' gradients are returned as empty stand-ins of
+    their full shapes (no values come out of a sampled loop)."""
 
     @staticmethod
     def forward(ctx, mode, step, n, nc, nx, *tensors):
-        # the inner graph keeps its own saved tensors: a remat region's
-        # hooks would recompute it in the backward, which runs it twice
+        # the inner graphs keep their own saved tensors: a remat region's
+        # hooks would recompute them in the backward, which runs them twice
         keep = torch.autograd.graph.saved_tensors_hooks(lambda t: t,
                                                         lambda t: t)
+
+        def leaf(t):
+            return t.detach().requires_grad_(t.requires_grad)
+
+        def inputs(k):
+            return [leaf(x[:, :k]) for x in tensors[nc:nc + nx]]
+
         with torch.enable_grad(), keep:
-            inner = [t.detach().requires_grad_(t.requires_grad)
-                     for t in tensors]
-            ys, c3, c4 = _sample(mode, step, tuple(inner[:nc]),
-                                 tuple(inner[nc:nc + nx]),
-                                 tuple(inner[nc + nx:]), n)
-        ctx.mode, ctx.n, ctx.inner = mode, n, inner
-        ctx.ys, ctx.carries = ys, (c3, c4)
+            carry = tuple(leaf(t) for t in tensors[:nc])
+            consts = tuple(leaf(t) for t in tensors[nc + nx:])
+            x4 = inputs(SAMPLED_STEPS)
+            ys, c4 = _sample(mode, step, carry, [x.unbind(1) for x in x4],
+                             consts, n)
+            before = mode._counts()
+            x3 = inputs(SAMPLED_STEPS - 1)
+            c3, ys3 = carry, []
+            for t_steps in zip(*[x.unbind(1) for x in x3]):
+                c3, y = step(c3, t_steps, consts)
+                ys3.append(y)
+            mode._add(_diff(mode._counts(), before))
+        ctx.mode, ctx.n, ctx.shapes = mode, n, [x.shape for x in
+                                                tensors[nc:nc + nx]]
+        ctx.graphs = ((ys3, c3, list(carry) + x3 + list(consts)),
+                      (ys, c4, list(carry) + x4 + list(consts)))
+        ctx.nc = nc
         ctx.set_materialize_grads(False)
         out = [c.detach() for c in c4]
         ys = [y.detach() for y in ys]
@@ -285,32 +323,36 @@ class _SampledLoop(torch.autograd.Function):
     def backward(ctx, *grads):
         mode, n = ctx.mode, ctx.n
         g_carry, g_ys = grads[:-1], grads[-1]
-        want = [i for i, t in enumerate(ctx.inner) if t.requires_grad]
-        inputs = [ctx.inner[i] for i in want]
 
-        def run(k, carry, retain):
+        def run(ys, carry, leaves):
             outs, gs = [], []
-            for t in range(k):
+            for t, y in enumerate(ys):
                 if g_ys is not None:
-                    outs.append(ctx.ys[t])
+                    outs.append(y)
                     gs.append(g_ys[:, t])
             for c, g in zip(carry, g_carry):
                 if g is not None:
                     outs.append(c)
                     gs.append(g)
-            return torch.autograd.grad(outs, inputs, gs, retain_graph=retain,
-                                       allow_unused=True)
+            want = [i for i, t in enumerate(leaves) if t.requires_grad]
+            got = torch.autograd.grad(outs, [leaves[i] for i in want], gs,
+                                      allow_unused=True)
+            out = [None] * len(leaves)
+            for i, g in zip(want, got):
+                out[i] = g
+            return out
 
         s0 = mode._counts()
-        got = run(SAMPLED_STEPS - 1, ctx.carries[0], True)
+        got = run(*ctx.graphs[0])
         s1 = mode._counts()
-        run(SAMPLED_STEPS, ctx.carries[1], False)
+        run(*ctx.graphs[1])
         s2 = mode._counts()
         # counted: d3 + d4; wanted: d3 + (n - 3) (d4 - d3)
         d3, d4 = _diff(s0, s1), _diff(s1, s2)
         mode._add({k: (n - SAMPLED_STEPS + 1) * (d4.get(k, 0) - d3.get(k, 0))
                    - d4.get(k, 0) for k in set(d3) | set(d4)})
-        out = [None] * len(ctx.inner)
-        for i, g in zip(want, got):
-            out[i] = g
-        return (None,) * 5 + tuple(out)
+        nc, nx = ctx.nc, len(ctx.shapes)
+        for i, shape in enumerate(ctx.shapes):
+            if got[nc + i] is not None:
+                got[nc + i] = got[nc + i].new_empty(shape)
+        return (None,) * 5 + tuple(got)

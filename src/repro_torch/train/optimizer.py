@@ -39,6 +39,7 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.sharding import chunk_bounds, is_dtensor, wrap_local
 
 BLOCK = 128
+MOMENT_DTYPE = torch.float32     # the float moments' dtype, as the reference's
 
 
 @dataclass(frozen=True)
@@ -127,7 +128,7 @@ def _last_axis(p: torch.Tensor):
 
 def _zeros_moment(p: torch.Tensor, cfg: AdamWConfig):
     z = torch.zeros_like(p, dtype=torch.int8 if cfg.int8_states
-                         else torch.float32)
+                         else MOMENT_DTYPE)
     if not cfg.int8_states:
         return z
     nb, _ = _blocks(p.shape[-1])

@@ -12,7 +12,7 @@ over the largest |gradient| entry (global) and the worst leaf's own
 ratio.  (2) is the same function at another batch shape, so it measures
 the float32 rounding floor that (1) sits on; but it goes through vmap
 too.  ``--float64`` runs the same model code in float64
-(:func:`float64_model`): rounding then shrinks by about 2^29, while a
+(``tools/float64_witness.py``): rounding then shrinks by about 2^29, while a
 fault in vmap's batching would stay as large as it is.  Prints the card's
 name and power limit.
 """
@@ -30,37 +30,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from float64_witness import float64_model  # noqa: E402
+
 
 def _gaps(got, want):
     gmax = max(float(w.abs().max()) for w in want)
     diff = [float((a - w).abs().max()) for a, w in zip(got, want)]
     leaf = max(d / max(float(w.abs().max()), 1e-30) for d, w in zip(diff, want))
     return max(diff) / gmax, leaf
-
-
-@contextlib.contextmanager
-def float64_model():
-    """Run the port's model code in float64: every dtype name but
-    ``"bfloat16"`` maps to float64, ``Tensor.float()`` casts to float64 and
-    new tensors default to float64.  The model is float32 at most, as the
-    reference's; this is a witness of the float32 runs, not a mode."""
-    from repro_torch.models import config, layers, moe, recurrent, transformer
-    mods = [m for m in (config, layers, moe, recurrent, transformer)
-            if hasattr(m, "torch_dtype")]
-    saved = [m.torch_dtype for m in mods]
-    to_float, default = torch.Tensor.float, torch.get_default_dtype()
-    for m in mods:
-        m.torch_dtype = (lambda name: torch.bfloat16 if name == "bfloat16"
-                         else torch.float64)
-    torch.Tensor.float = lambda self, *a, **k: self.double(*a, **k)
-    torch.set_default_dtype(torch.float64)
-    try:
-        yield
-    finally:
-        torch.set_default_dtype(default)
-        torch.Tensor.float = to_float
-        for m, f in zip(mods, saved):
-            m.torch_dtype = f
 
 
 def gaps(cfg, device: str, batch):
