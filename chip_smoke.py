@@ -88,10 +88,12 @@ Phases, in order; any failure exits non-zero:
    card, each within 6 sigma of every exact marginal.
 18. [dnc-d500] d = 500 all <=2-way, strategy="dnc": seconds of select_dnc
    and variances_array, blocks, straddlers, peak host RSS; a release over
-   mixture marginals (in-block and 1-way tables within 6 sigma, the worst
-   straddler printed in its proxy sigma), two releases from one seed
-   bit-identical, device ms by kernel, nonneg (cells >= 0, sums equal to
-   the pinned total) and synthesize(100,000).
+   mixture marginals (in-block and 1-way tables within 6 sigma,
+   straddlers within 6 sigma of the product of their exact parts, their
+   distance from the exact marginal printed in the proxy sigma), two
+   releases from one seed bit-identical, device ms by kernel of the second
+   one, nonneg (cells >= 0, sums equal to the pinned total) and
+   synthesize(100,000).
 19. [sharded-adult] sharded tables of the Adult records on the card, alone
    and under a one-rank NCCL group, equal to the host tables;
    sharded_measure equal to MarginalEngine.measure bit for bit (the second
@@ -101,8 +103,14 @@ Phases, in order; any failure exits non-zero:
 20. [obs] one Adult release traced to a JSONL file: engine spans with
    kernel.chain children, tables equal to the untraced ones, /metrics with
    the shared families and the roofline gauges; seconds traced and not.
-21. [dnc-d200-auto] d = 200 all <=3-way: select(strategy="auto") returns a
-   CompositePlan (plan only; seconds, peak host RSS).
+21. [dnc-d200] d = 200 all <=3-way: select(strategy="auto") returns a
+   CompositePlan (in a child process: seconds, peak host RSS; then in the
+   phase's process, the same blocks and straddlers), released on the card with
+   [dnc-d500]'s gates over 1,333,500 tables (2.79e8 cells; 1,306,015
+   straddlers of 2 and 3 parts), the second release profiled as there.
+   Seconds by stage, straddlers and cells by number of parts, peak host
+   RSS and device memory.  tools/dnc_d200_parity.py (CPU, both packages)
+   holds the straddler assembly to the JAX package's rule at this width.
 22. [rplus-maxvar] RP+ max-variance on the card twice (sigma bit-identical)
    and on the CPU (loss within rel 5e-3).
 23. [serve-adult] the release server (repro_torch.serve) at a service's
@@ -206,6 +214,12 @@ Phases, in order; any failure exits non-zero:
 33. Print the kernels line (the fused kernel at float32, bf16 and fp16, and
    the per-axis kernel; launches over every phase above) and, last,
    {"ok": true, "device": {...}}.
+
+[secure-adult] (11) and [dnc-d200] (21) are host-bound and hold under a GiB
+of the card, so each runs in a child process of its own (python3
+chip_smoke.py --phase NAME ...), started after [adult-bf16], the last phase
+that gates on a time, beside phases 9-26; their output and launch counts are
+read before [lm-serve], and a failed child fails the smoke.
 
 [select-device] and [select-convex] also run each route twice more, on the
 card and on the CPU, and require sigma and the loss bit-identical.
@@ -356,7 +370,12 @@ def kernel_ms_by_name(fn):
     kernel_label), from torch.profiler's device events (``profiled``);
     copies apart."""
     torch.cuda.synchronize()
-    evs, _ = profiled(fn)
+    return kernel_ms(profiled(fn)[0])
+
+
+def kernel_ms(evs):
+    """Device ms of a profiler session's events in each kernel of the port
+    (by kernel_label); copies apart."""
     out = {}
     for ev in evs:
         if ev.key.startswith(("Memcpy", "Memset")):
@@ -1632,7 +1651,7 @@ def phase_release_secure(card, eng, margs):
 
 
 DNC_D = 500            # [dnc-d500]: the README's headline D&C width
-DNC_AUTO_D = 200       # [dnc-d200-auto]: all <=3-way, past AUTO_DNC_NNZ
+DNC_AUTO_D = 200       # [dnc-d200]: all <=3-way, past AUTO_DNC_NNZ
 DNC_MASS = 1e6         # records' mass of the mixture marginals
 SYNTH_RECORDS = 100_000
 OBS_ROUNDS = 4         # [obs]: off/on pairs, alternated
@@ -1665,14 +1684,22 @@ print(json.dumps(dict(
 
 
 def plan_in_child(d, k, strategy):
-    """select(all_kway(mixed_domain(d), k), strategy=...) in a child Python
-    process: its seconds and its peak RSS (``base_gib``: the peak after the
-    imports, torch's and what the fork inherited included)."""
+    """Start select(all_kway(mixed_domain(d), k), strategy=...) in a child
+    Python process; ``plan_in_child_read`` returns its seconds and its peak
+    RSS (``base_gib``: the peak after the imports, torch's and what the
+    fork inherited included)."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-    out = subprocess.run([sys.executable, "-c", _PLAN_IN_CHILD.format(
-        src=src, d=d, k=k, strategy=strategy)], capture_output=True,
-        text=True, timeout=600, check=True)
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subprocess.Popen([sys.executable, "-c", _PLAN_IN_CHILD.format(
+        src=src, d=d, k=k, strategy=strategy)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def plan_in_child_read(proc):
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the planner's child process exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def mixed_domain(d):
@@ -1693,86 +1720,212 @@ def blocked_workload(d, bs, k):
     return MarginalWorkload(mixed_domain(d), tuple(cl))
 
 
-def sigma_dev(plan, tables, exact, rows):
-    """max over ``rows`` of |table - exact| / sigma (the plan's variances)."""
+def width_index(cliques):
+    """(lens, {width: (at, (n_width, width) attribute matrix)}) of a clique
+    list, for ``rows_by_width``: built once, passed to every check of one
+    release."""
+    lens = np.fromiter(map(len, cliques), np.int64, len(cliques))
+    per = {}
+    for k in np.unique(lens).tolist():
+        ids = np.flatnonzero(lens == k)
+        at = np.full(len(cliques), -1, np.int64)
+        at[ids] = np.arange(len(ids))
+        per[k] = (at, np.asarray([cliques[r] for r in ids.tolist()],
+                                 np.int64).reshape(len(ids), k))
+    return lens, per
+
+
+def rows_by_width(index, rows):
+    """{width: (rows of that width, their (g, width) attribute matrix)}
+    from a ``width_index``."""
+    lens, per = index
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    out = {}
+    for k in np.unique(lens[rows]).tolist():
+        rk = rows[lens[rows] == k]
+        at, mat = per[k]
+        out[k] = (rk, mat[at[rk]])
+    return out
+
+
+CHECK_CHUNK = 1 << 24          # cells of one stacked batch of tables
+
+
+def chunks(idx, cells):
+    """``idx`` cut into runs of at most CHECK_CHUNK cells of ``cells``
+    each."""
+    step = max(1, CHECK_CHUNK // max(int(cells), 1))
+    return [idx[i:i + step] for i in range(0, len(idx), step)]
+
+
+def stacked(tables, cliques, rows, cells, what="table"):
+    """(g, cells) float64 of ``tables[cliques[r]]`` for ``rows``; raises on
+    a table of another shape or a non-finite value."""
+    arrs = [tables[cliques[r]] for r in rows.tolist()]
+    if any(t.shape != (cells,) for t in arrs):
+        raise AssertionError(f"a {what} of {cells} cells has another shape")
+    out = np.concatenate(arrs).astype(np.float64, copy=False).reshape(
+        len(arrs), cells)
+    if not np.all(np.isfinite(out)):
+        raise AssertionError(f"a {what} of {cells} cells has non-finite "
+                             "values")
+    return out
+
+
+def sigma_dev(plan, tables, exact, rows, index=None):
+    """max over ``rows`` of |table - exact| / sigma (the plan's variances);
+    rows with one number of cells are checked in batches.  ``index``: the
+    workload's ``width_index`` (built here if None)."""
+    from repro_torch.core.partition import group_rows
     sd = np.sqrt(plan.variances_array())
     wk = plan.workload.cliques
+    sizes = np.asarray(plan.domain.sizes, np.int64)
     worst = 0.0
-    for r in rows:
-        c = wk[r]
-        t = np.asarray(tables[c], np.float64)
-        if t.shape != (plan.domain.n_cells(c),) or not np.all(np.isfinite(t)):
-            raise AssertionError(f"table {c} has shape {t.shape} or "
-                                 "non-finite values")
-        worst = max(worst, float(np.abs(t - exact[c]).max() / sd[r]))
+    for rk, mat in rows_by_width(index or width_index(wk), rows).values():
+        cells = np.prod(sizes[mat], axis=1)
+        for grp in group_rows(cells[:, None]):
+            n = int(cells[grp[0]])
+            for part in chunks(rk[grp], n):
+                t = stacked(tables, wk, part, n)
+                e = stacked(exact, wk, part, n, "exact marginal")
+                worst = max(worst, float(np.max(
+                    np.abs(t - e).max(axis=1) / sd[part])))
     return worst
 
 
-def straddler_dev(plan, tables, exact, rows):
-    """max over the straddling ``rows`` of |table - target| / sigma.  The
-    target is what the product-of-blocks estimator estimates: the outer
-    product of the exact part marginals (summed out of the exact table)
-    over N^(parts - 1).  sigma is the estimator's first-order (delta-method)
-    deviation, from the parts' variances and their covariances through the
-    shared total T: every reconstructed marginal holds T/cells in each cell
-    and the blocks' other noise is independent, so Cov(P_p, T) = Var T / n_p
-    and Cov(P_p, P_q) = Var T / (n_p n_q) for n_p cells of part p.  Rows
-    with one shape and one split of their axes into parts are checked in
-    one batch."""
+def row_finder(cliques, n_attrs):
+    """A function from a (g, w) attribute matrix to the rows of
+    ``cliques`` equal to its rows (-1 where none is); each width's index is
+    built on its first use."""
+    lens = np.fromiter(map(len, cliques), np.int64, len(cliques))
+    index = {}
+
+    def code(mat):
+        if n_attrs ** mat.shape[1] >= 1 << 62:
+            raise ValueError(f"cliques of {mat.shape[1]} attributes out of "
+                             f"{n_attrs} do not fit one int64 key")
+        key = np.zeros(len(mat), np.int64)
+        for j in range(mat.shape[1]):
+            key = key * n_attrs + mat[:, j]
+        return key
+
+    def find(pc):
+        w = pc.shape[1]
+        if w not in index:
+            ids = np.flatnonzero(lens == w)
+            key = code(np.asarray([cliques[r] for r in ids.tolist()],
+                                  np.int64).reshape(len(ids), w))
+            order = np.argsort(key, kind="stable")
+            index[w] = (key[order], ids[order])
+        keys, ids = index[w]
+        if not len(keys):
+            return np.full(len(pc), -1, np.int64)
+        want = code(pc)
+        at = np.minimum(np.searchsorted(keys, want), len(keys) - 1)
+        return np.where(keys[at] == want, ids[at], -1)
+    return find
+
+
+def straddler_dev(plan, tables, exact, rows, device="cpu"):
+    """max over the straddling ``rows`` of |table - target| / sigma
+    (``straddler_check``'s ``worst``)."""
+    return straddler_check(plan, tables, exact, rows, device)["worst"]
+
+
+def straddler_check(plan, tables, exact, rows, device="cpu", again=None,
+                    index=None):
+    """One pass over the straddling ``rows``.  ``worst``: max of |table -
+    target| / sigma.  The target is what the product-of-blocks estimator
+    estimates: the outer product of the exact part marginals (summed out of
+    the exact table) over N^(parts - 1).  sigma is the estimator's
+    first-order (delta-method) deviation, from the parts' variances and
+    their covariances through the shared total T: every reconstructed
+    marginal holds T/cells in each cell and the blocks' other noise is
+    independent, so Cov(P_p, T) = Var T / n_p and Cov(P_p, P_q) = Var T /
+    (n_p n_q) for n_p cells of part p.  ``proxy``: max of |table - exact
+    marginal| / the plan's proxy sigma (``sigma_dev`` of these rows).
+    ``same``: with ``again`` (a second release), whether every table of
+    ``rows`` equals its table there.  Rows with one shape and one split of
+    their axes into parts are checked in batches, the arithmetic in float64
+    torch on ``device``.  ``index``: the workload's ``width_index`` (built
+    here if None)."""
+    from repro_torch.core.partition import group_rows
     dom = plan.domain
     wk = plan.workload.cliques
     block_of = plan.partition.block_of_array()
-    var = dict(zip(wk, plan.variances_array()))
+    variances = plan.variances_array()
+    sizes = np.asarray(dom.sizes, np.int64)
     vt = plan.block_plans[0].marginal_variance(())
     n = float(np.asarray(exact[()], np.float64).reshape(-1)[0])
-    groups = {}                     # (shape, part label per axis) -> rows
-    for r in rows:
-        c = wk[r]
-        first = {}
-        labels = tuple(first.setdefault(int(b), len(first))
-                       for b in block_of[list(c)])
-        groups.setdefault((dom.clique_sizes(c), labels), []).append(r)
-    worst = 0.0
-    for (shape, labels), grp in groups.items():
-        g, nd, k = len(grp), len(shape), max(labels) + 1
-        m = np.stack([np.asarray(exact[wk[r]], np.float64) for r in grp]
-                     ).reshape((g,) + shape)
-        t = np.stack([np.asarray(tables[wk[r]], np.float64) for r in grp])
-        if t.shape != (g, m[0].size) or not np.all(np.isfinite(t)):
-            raise AssertionError(f"a straddler of shape {shape} has a wrong "
-                                 "shape or non-finite values")
-        parts = []                  # (exact part, its variance, its cells)
-        for p in range(k):
-            axes = [i for i in range(nd) if labels[i] == p]
-            vp = np.empty(g)
-            for j, r in enumerate(grp):
-                c = wk[r]
-                pc = tuple(c[i] for i in axes)
-                vp[j] = var[pc] if pc in var else plan.block_plans[
-                    int(block_of[c[axes[0]]])].marginal_variance(pc)
-            parts.append((m.sum(axis=tuple(i + 1 for i in range(nd)
-                                           if i not in axes), keepdims=True),
-                          vp.reshape((g,) + (1,) * nd),
-                          int(np.prod([shape[i] for i in axes]))))
-        den = n ** (k - 1)
-        grads = []                  # d target / d part p
-        for p in range(k):
-            gp = np.ones((g,) + shape)
-            for q, (pt, _, _) in enumerate(parts):
-                if q != p:
-                    gp = gp * pt
-            grads.append(gp / den)
-        target = grads[0] * parts[0][0]
-        g_t = -(k - 1) * target / n
-        v = g_t ** 2 * vt
-        for p, (_, vp, cp) in enumerate(parts):
-            v = v + grads[p] ** 2 * vp + 2 * grads[p] * g_t * vt / cp
-            for q, (_, _, cq) in enumerate(parts):
-                if q != p:
-                    v = v + grads[p] * grads[q] * vt / (cp * cq)
-        worst = max(worst, float(np.max(
-            np.abs(t.reshape(m.shape) - target) / np.sqrt(v))))
-    return worst
+    find = row_finder(wk, dom.n_attrs)
+    worst, proxy, same = 0.0, 0.0, True
+    for nd, (rk, mat) in rows_by_width(index or width_index(wk),
+                                       rows).items():
+        # each axis's part: its block's rank among the row's blocks in order
+        blk = block_of[mat]
+        first = np.argmax(blk[:, :, None] == blk[:, None, :], axis=2)
+        rank = np.cumsum(first == np.arange(nd), axis=1) - 1
+        labels = np.take_along_axis(rank, first, axis=1)
+        for grp in group_rows(np.concatenate([sizes[mat], labels], axis=1)):
+            shape = tuple(sizes[mat[grp[0]]].tolist())
+            cells = int(np.prod(shape))
+            lab = labels[grp[0]]
+            k = int(lab.max()) + 1
+            vps = []                # each part's variance, per row
+            for p in range(k):
+                axes = np.flatnonzero(lab == p)
+                pc = mat[grp][:, axes]
+                r_pc = find(pc)
+                vp = variances[np.maximum(r_pc, 0)]
+                for j in np.flatnonzero(r_pc < 0).tolist():
+                    vp[j] = plan.block_plans[int(block_of[pc[j, 0]])
+                                             ].marginal_variance(
+                        tuple(pc[j].tolist()))
+                vps.append(vp)
+            for part in chunks(np.arange(len(grp)), cells):
+                g = len(part)
+                rows_p = rk[grp[part]]
+                t_np = stacked(tables, wk, rows_p, cells,
+                               f"straddler of shape {shape}")
+                if again is not None:
+                    same = same and np.array_equal(t_np, stacked(
+                        again, wk, rows_p, cells, "second release's table"))
+                m = torch.from_numpy(stacked(
+                    exact, wk, rows_p, cells, "exact marginal")).to(device)
+                t = torch.from_numpy(t_np).to(device)
+                sd = torch.from_numpy(np.sqrt(variances[rows_p])).to(device)
+                proxy = max(proxy, float(torch.max(
+                    (t - m).abs().amax(dim=1) / sd)))
+                m = m.reshape((g,) + shape)
+                parts = []          # (exact part, its variance, its cells)
+                for p in range(k):
+                    axes = [i for i in range(nd) if lab[i] == p]
+                    rest = [i + 1 for i in range(nd) if i not in axes]
+                    parts.append((m.sum(dim=rest, keepdim=True) if rest
+                                  else m,
+                                  torch.from_numpy(vps[p][part]).to(
+                                      device).reshape((g,) + (1,) * nd),
+                                  int(np.prod([shape[i] for i in axes]))))
+                den = n ** (k - 1)
+                grads = []          # d target / d part p
+                for p in range(k):
+                    gp = torch.ones((g,) + shape, dtype=torch.float64,
+                                    device=device)
+                    for q, (pt, _, _) in enumerate(parts):
+                        if q != p:
+                            gp = gp * pt
+                    grads.append(gp / den)
+                target = grads[0] * parts[0][0]
+                g_t = -(k - 1) * target / n
+                v = g_t ** 2 * vt
+                for p, (_, vp, cp) in enumerate(parts):
+                    v = v + grads[p] ** 2 * vp + 2 * grads[p] * g_t * vt / cp
+                    for q, (_, _, cq) in enumerate(parts):
+                        if q != p:
+                            v = v + grads[p] * grads[q] * vt / (cp * cq)
+                worst = max(worst, float(torch.max(
+                    (t.reshape(m.shape) - target).abs() / v.sqrt())))
+    return {"worst": worst, "proxy": proxy, "same": same}
 
 
 def phase_dnc_parity(card):
@@ -1824,18 +1977,171 @@ def phase_dnc_parity(card):
     return counts
 
 
-def phase_dnc_d500(card, child):
-    """[dnc-d500]: d = 500 all <=2-way, strategy="dnc" (SoV), released on
-    the card over mixture marginals; in-block and 1-way tables within 6
-    sigma of the exact marginal, straddlers within 6 sigma of the product of
-    their exact parts (``straddler_dev``; their distance from the exact
-    marginal printed in the proxy sigma), two releases from one
-    seed bit-identical, device ms by kernel, nonneg (cells >= 0, sums equal
-    to the pinned total) and synthesize(100,000)."""
-    from repro_torch.core import all_kway, select
+def cells_of(index, sizes, rows):
+    """(len(rows),) cells of each row's table (``index``: the clique list's
+    ``width_index``)."""
+    rows = np.asarray(rows, np.int64)
+    out = np.ones(rows.size, np.int64)
+    for rk, mat in rows_by_width(index, rows).values():
+        out[np.isin(rows, rk)] = np.prod(sizes[mat], axis=1)
+    return out
+
+
+def nonneg_straddlers(tables, cliques, index, sizes, rows, total):
+    """(negative cells, max |sum - total| / total) over the tables of
+    ``rows``, in batches of one number of cells (``index``: the clique
+    list's ``width_index``)."""
+    from repro_torch.core.partition import group_rows
+    neg, off = 0, 0.0
+    for rk, mat in rows_by_width(index, rows).values():
+        cells = np.prod(sizes[mat], axis=1)
+        for grp in group_rows(cells[:, None]):
+            for part in chunks(rk[grp], int(cells[grp[0]])):
+                t = stacked(tables, cliques, part, int(cells[grp[0]]))
+                neg += int((t < 0).sum())
+                off = max(off, float(np.max(np.abs(t.sum(axis=1) - total)))
+                          / total)
+    return neg, off
+
+
+def dnc_release(card, tag, plan, wk, secs):
+    """The release of [dnc-d500] and [dnc-d200] on the card: mixture
+    marginals of the plan's closure and the workload, ``plan.engine``, a
+    release (in-block and 1-way tables within 6 sigma of the exact
+    marginal, straddlers within 6 sigma of the product of their exact parts
+    by ``straddler_dev``, their distance from the exact marginal printed in
+    the proxy sigma; ``straddler_check``), a second release from one seed
+    bit-identical, device ms by kernel of that second release, nonneg (no
+    negative cell, in-block sums within 2 ulp of the pinned total,
+    straddlers within rel 1e-9 of it) and
+    synthesize(100,000) in range.  ``secs`` holds the seconds printed
+    before the release's; returns the first release's launch counts and
+    the host seconds of its stages."""
     from repro_torch.data.tabular import mixture_marginals
     from repro_torch.kernels.kron_matvec.stats import (chain_stats,
                                                        reset_chain_stats)
+    dom = wk.domain
+    d = plan.decomposition
+    t0 = time.perf_counter()
+    exact = mixture_marginals(dom, list(dict.fromkeys(
+        list(plan.cliques) + list(wk.cliques))), DNC_MASS, SEED)
+    secs["marginals"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = plan.engine(device="cuda")
+    secs["engine"] = time.perf_counter() - t0
+    timed_engine(eng, secs)
+    stages = {"block reconstruct": [], "straddler grouping": [],
+              "assembly": []}       # host seconds of each call
+
+    def timer(key, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stages[key].append(time.perf_counter() - t)
+            return out
+        return run
+    eng._block_tables = timer("block reconstruct", eng._block_tables)
+    eng._straddler_groups = timer("straddler grouping",
+                                  eng._straddler_groups)
+    eng._assemble = timer("assembly", eng._assemble)
+    reset_chain_stats()
+    t0 = time.perf_counter()
+    tables, _ = eng.release(exact, cuda_gen())
+    secs["release"] = time.perf_counter() - t0
+    counts = chain_stats()
+    secs = dict(secs)               # the first release's; later ones rewrite
+    inb = np.flatnonzero(d.row_block >= 0)
+    strad = np.flatnonzero(d.row_block < 0)
+    # the second release under the profiler, in one session: a retake
+    # would run the whole release again (the profiler drops a few of
+    # d = 200's 11,458 launches in a busy process; ``profiled`` prints how
+    # many it recorded)
+    second = {}
+
+    def release_again():
+        second["tables"], _ = eng.release(exact, cuda_gen())
+        second["end"] = time.perf_counter()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ms = kernel_ms(profiled(release_again, tries=1)[0])
+    secs["second release"] = time.perf_counter() - t0
+    post = {"profiler after": time.perf_counter() - second["end"]}
+    again = second.pop("tables")
+    t0 = time.perf_counter()
+    index = width_index(wk.cliques)
+    worst = sigma_dev(plan, tables, exact, inb, index)
+    strads = straddler_check(plan, tables, exact, strad, device="cuda",
+                             again=again, index=index)
+    worst_t, worst_s = strads["worst"], strads["proxy"]
+    same = (tables.keys() == again.keys() and strads["same"]
+            and all(np.array_equal(tables[wk.cliques[r]],
+                                   again[wk.cliques[r]]) for r in inb))
+    secs["check"] = time.perf_counter() - t0
+    del again
+    sizes = np.asarray(dom.sizes, np.int64)
+    cells = int(cells_of(index, sizes, inb).sum())
+    s_cells = int(cells_of(index, sizes, strad).sum())
+    print(f"[{tag}] release seconds (measure and reconstruct of the "
+          f"first release): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; straddler assembly on the host {stages['assembly'][0]:.3f} "
+          f"(first release, its grouping built) and "
+          f"{stages['assembly'][1]:.3f} (second); "
+          f"worst in-block/1-way table {worst:.3f} sigma over {len(inb)} "
+          f"tables, {cells} cells (bound 6; {cells + s_cells} cells in all "
+          f"the workload's tables); worst straddler {worst_t:.3f} sigma of "
+          f"the product of its exact parts over {len(strad)} tables, "
+          f"{s_cells} cells (bound 6), {worst_s:.3f} proxy sigma from the "
+          f"exact marginal (not gated); two releases from one seed "
+          f"bit-identical {same}; launches {counts} | {card}")
+    if not (worst <= 6.0 and worst_t <= 6.0 and same
+            and counts["fused_launches"] > 0):
+        raise AssertionError(f"the {tag} D&C release left 6 sigma, was not "
+                             "reproducible or skipped the fused kernel")
+    print(f"[{tag}] device ms of the second release by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items()))
+          + f" | {card}")
+    del tables
+    t0 = time.perf_counter()
+    with ReleaseStages() as nonneg_stages:
+        nn, meas = eng.release(exact, cuda_gen(), postprocess="nonneg")
+    post["nonneg release"] = time.perf_counter() - t0
+    total = float(np.asarray(meas[()].omega).reshape(-1)[0])
+    neg = sum(int((nn[wk.cliques[r]] < 0).sum()) for r in inb)
+    off_in = max(abs(float(np.sum(nn[wk.cliques[r]])) - total)
+                 / np.spacing(total) for r in inb)
+    neg_s, off_s = nonneg_straddlers(nn, wk.cliques, index, sizes, strad,
+                                     total)
+    neg += neg_s
+    del nn
+    t0 = time.perf_counter()
+    recs = eng.synthesize(SYNTH_RECORDS, cuda_gen())
+    post["synthesize"] = time.perf_counter() - t0
+    ok_recs = (recs.shape == (SYNTH_RECORDS, dom.n_attrs) and recs.min() >= 0
+               and bool(np.all(recs.max(axis=0) < sizes)))
+    print(f"[{tag}] nonneg: negative cells {neg}, worst in-block |sum - "
+          f"total| {off_in:.1f} ulp of the pinned total {total:.6f}, worst "
+          f"straddler rel {off_s:.3e}; synthesize({SYNTH_RECORDS}) "
+          f"{recs.shape} in range {ok_recs}; seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in post.items()
+                      if k != "profiler after")
+          + f" | {card}")
+    if neg or off_in > 2 or off_s > 1e-9 or not ok_recs:
+        raise AssertionError(f"the {tag} nonneg release or its synthesis is "
+                             "off")
+    secs.update(post)
+    secs["nonneg stages"] = nonneg_stages.line()
+    secs["block reconstruct"] = stages["block reconstruct"][0]
+    secs["straddler grouping"] = stages["straddler grouping"][0]
+    secs["assembly"], secs["assembly second"] = stages["assembly"][:2]
+    return counts, secs
+
+
+def phase_dnc_d500(card, child):
+    """[dnc-d500]: d = 500 all <=2-way, strategy="dnc" (SoV), released on
+    the card over mixture marginals (``dnc_release``)."""
+    from repro_torch.core import all_kway, select
     dom = mixed_domain(DNC_D)
     wk = all_kway(dom, 2, include_lower=True)
     secs = {}
@@ -1856,97 +2162,22 @@ def phase_dnc_d500(card, child):
           f"{child['workload_s']:.3f} s, select {child['select_s']:.3f} s, "
           f"peak host RSS {child['peak_gib']:.3f} GiB (after the imports "
           f"{child['base_gib']:.3f} GiB) | {card}")
-    t0 = time.perf_counter()
-    exact = mixture_marginals(dom, list(dict.fromkeys(
-        list(plan.cliques) + list(wk.cliques))), DNC_MASS, SEED)
-    secs["marginals"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eng = plan.engine(device="cuda")
-    secs["engine"] = time.perf_counter() - t0
-    timed_engine(eng, secs)
-    assembly = []                   # host seconds of each straddler assembly
-
-    def timed_assemble(*a, _fn=eng._assemble, **k):
-        t = time.perf_counter()
-        out = _fn(*a, **k)
-        assembly.append(time.perf_counter() - t)
-        return out
-    eng._assemble = timed_assemble
-    reset_chain_stats()
-    t0 = time.perf_counter()
-    tables, _ = eng.release(exact, cuda_gen())
-    secs["release"] = time.perf_counter() - t0
-    counts = chain_stats()
-    secs = dict(secs)               # the first release's; later ones rewrite
-    inb = np.flatnonzero(d.row_block >= 0)
-    strad = np.flatnonzero(d.row_block < 0)
-    t0 = time.perf_counter()
-    worst = sigma_dev(plan, tables, exact, inb)
-    worst_s = sigma_dev(plan, tables, exact, strad) if strad.size else 0.0
-    worst_t = straddler_dev(plan, tables, exact, strad)
-    secs["check"] = time.perf_counter() - t0
-    cells = sum(dom.n_cells(wk.cliques[r]) for r in inb)
-    s_cells = sum(dom.n_cells(wk.cliques[r]) for r in strad)
-    all_cells = sum(dom.n_cells(c) for c in wk.cliques)
-    t0 = time.perf_counter()
-    again, _ = eng.release(exact, cuda_gen())
-    secs["second release"] = time.perf_counter() - t0
-    same = same_family(tables, again)
-    print(f"[dnc-d500] release seconds (measure and reconstruct of the "
-          f"first release): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
-          + f"; straddler assembly on the host {assembly[0]:.3f} (first "
-          f"release, its grouping built) and {assembly[1]:.3f} (second); "
-          f"worst in-block/1-way table {worst:.3f} sigma over {len(inb)} "
-          f"tables, {cells} cells (bound 6; {all_cells} cells in all the "
-          f"workload's tables); worst straddler {worst_t:.3f} sigma of the "
-          f"product of its exact parts over {len(strad)} tables, {s_cells} "
-          f"cells (bound 6), {worst_s:.3f} proxy sigma from the exact "
-          f"marginal (not gated); two releases from one seed bit-identical "
-          f"{same}; launches {counts} | {card}")
-    if not (worst <= 6.0 and worst_t <= 6.0 and same
-            and counts["fused_launches"] > 0):
-        raise AssertionError("the d=500 D&C release left 6 sigma, was not "
-                             "reproducible or skipped the fused kernel")
-    ms = kernel_ms_by_name(lambda: eng.release(exact, cuda_gen()))
-    print(f"[dnc-d500] device ms of one more release by kernel: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items()))
-          + f" | {card}")
-    post = {}
-    t0 = time.perf_counter()
-    nn, meas = eng.release(exact, cuda_gen(), postprocess="nonneg")
-    post["nonneg release"] = time.perf_counter() - t0
-    total = float(np.asarray(meas[()].omega).reshape(-1)[0])
-    neg = sum(int((t < 0).sum()) for t in nn.values())
-    off_in = max(abs(float(np.sum(nn[wk.cliques[r]])) - total)
-                 / np.spacing(total) for r in inb)
-    off_s = max((abs(float(np.sum(nn[wk.cliques[r]])) - total) / total
-                 for r in strad), default=0.0)
-    t0 = time.perf_counter()
-    recs = eng.synthesize(SYNTH_RECORDS, cuda_gen())
-    post["synthesize"] = time.perf_counter() - t0
-    sizes = np.asarray(dom.sizes)
-    ok_recs = (recs.shape == (SYNTH_RECORDS, DNC_D) and recs.min() >= 0
-               and bool(np.all(recs.max(axis=0) < sizes)))
-    print(f"[dnc-d500] nonneg: negative cells {neg}, worst in-block |sum - "
-          f"total| {off_in:.1f} ulp of the pinned total {total:.6f}, worst "
-          f"straddler rel {off_s:.3e}; synthesize({SYNTH_RECORDS}) "
-          f"{recs.shape} in range {ok_recs}; seconds: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in post.items())
-          + f" | {card}")
-    if neg or off_in > 2 or off_s > 1e-9 or not ok_recs:
-        raise AssertionError("the d=500 nonneg release or its synthesis is "
-                             "off")
-    return counts
+    return dnc_release(card, "dnc-d500", plan, wk, secs)[0]
 
 
-def phase_dnc_d200_auto(card, r):
-    """[dnc-d200-auto]: d = 200 all <=3-way; select(strategy="auto") goes
-    past AUTO_DNC_NNZ and returns a CompositePlan.  Plan only, in a fresh
-    child process started with the smoke (``plan_in_child``: seconds and
-    peak RSS of the planner apart from the smoke's own phases)."""
+def phase_dnc_d200(card, r):
+    """[dnc-d200]: d = 200 all <=3-way.  select(strategy="auto") goes past
+    AUTO_DNC_NNZ to a CompositePlan, first in a fresh child process started
+    with the smoke (``plan_in_child``: seconds and peak RSS of the planner
+    alone), then here, with the child's blocks and straddlers; released on
+    the card as [dnc-d500] is (``dnc_release``).  Prints the straddlers and
+    their cells by number of parts, seconds by stage, the peak host RSS of
+    this process (the smoke runs the phase in a process of its own,
+    ``background_start``) and its peak device memory."""
+    import resource
+    from repro_torch.core import CompositePlan, all_kway, select
     from repro_torch.core.select import AUTO_DNC_NNZ
-    print(f"[dnc-d200-auto] d={DNC_AUTO_D} all <=3-way (a child process "
+    print(f"[dnc-d200] d={DNC_AUTO_D} all <=3-way (a child process "
           f"started with the smoke): "
           f"{r['marginals']} marginals, estimated incidence {r['est']} "
           f"(AUTO_DNC_NNZ {AUTO_DNC_NNZ}) -> CompositePlan {r['composite']}, "
@@ -1956,6 +2187,54 @@ def phase_dnc_d200_auto(card, r):
           f"{r['base_gib']:.3f} GiB) | {card}")
     if not (r["est"] > AUTO_DNC_NNZ and r["composite"]):
         raise AssertionError("strategy='auto' did not take the D&C route")
+    torch.cuda.reset_peak_memory_stats()
+    dom = mixed_domain(DNC_AUTO_D)
+    secs = {}
+    t0 = time.perf_counter()
+    wk = all_kway(dom, 3, include_lower=True)
+    plan = select(wk, 1.0, strategy="auto")
+    secs["select_auto"] = time.perf_counter() - t0
+    if not (isinstance(plan, CompositePlan) and plan.n_blocks == r["blocks"]
+            and plan.decomposition.n_straddlers == r["straddlers"]):
+        raise AssertionError("select(strategy='auto') in the phase differs "
+                             "from the child's plan")
+    d = plan.decomposition
+    strad = np.flatnonzero(d.row_block < 0)
+    n_parts = np.bincount(d.part_row, minlength=len(wk.cliques))[strad]
+    cells = np.ones(len(wk.cliques), np.int64)  # a straddler's: its parts'
+    np.multiply.at(cells, d.part_row, d.part_cells.astype(np.int64))
+    cells = cells[strad]
+    split = ", ".join(f"{k}-part {int((n_parts == k).sum())} tables "
+                      f"{int(cells[n_parts == k].sum())} cells"
+                      for k in np.unique(n_parts).tolist())
+    print(f"[dnc-d200] select(strategy='auto') in the phase's process: "
+          f"{len(wk.cliques)} marginals, {plan.n_blocks} blocks, "
+          f"{d.n_straddlers} straddlers ({split}), composite closure "
+          f"{len(plan.cliques)} cliques; seconds: workload and select_auto "
+          f"{secs['select_auto']:.3f} | {card}")
+    if not {2, 3} <= set(n_parts.tolist()):
+        raise AssertionError(f"the d={DNC_AUTO_D} straddlers lack 2- or "
+                             "3-part ones")
+    counts, stages = dnc_release(card, "dnc-d200", plan, wk, secs)
+    del plan, wk, d
+    free_device_memory()
+    keys = ("marginals", "engine", "measure", "block reconstruct",
+            "straddler grouping", "assembly", "second release",
+            "assembly second", "check", "nonneg release", "synthesize")
+    print(f"[dnc-d200] seconds by stage: "
+          + ", ".join(f"{k} {stages[k]:.3f}" for k in keys)
+          + f" (measure and block reconstruct of the first release, the "
+          f"second under the profiler, {stages['profiler after']:.3f} s of "
+          f"it the profiler's own after the release; check: the gates); "
+          f"nonneg's "
+          f"release stages: "
+          f"{stages['nonneg stages']}; peak host RSS of "
+          f"the phase's process "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.3f}"
+          f" GiB; peak device memory in the phase "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{counts} | {card}")
+    return counts
 
 
 def phase_sharded_adult(card, adult, plan, records, synth2_plan,
@@ -4814,12 +5093,90 @@ def phase_dryrun(started, timeout=900):
     return secs
 
 
+# Phases that run in a child process on the same card beside the phases of
+# the smoke's own process: both are host-bound (exact big-integer noise
+# draws; float64 straddler assembly) and hold under a GiB of the card.
+BACKGROUND_DIR = os.path.join("build", "background")
+
+
+def background_start(name, arg=None):
+    """Start phase ``name`` (``background_phase``) in a child process,
+    ``python3 chip_smoke.py --phase name ARG``, ``arg`` passed as JSON; its
+    output goes to a log under build/ and it is killed at exit if still
+    running.  Returns what ``background_join`` takes."""
+    import atexit
+    os.makedirs(BACKGROUND_DIR, exist_ok=True)
+    log_path = os.path.join(BACKGROUND_DIR, f"{name}.log")
+    out_path = os.path.join(BACKGROUND_DIR, f"{name}.json")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase", name,
+         json.dumps(arg), out_path], stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return name, proc, log, log_path, out_path, time.perf_counter()
+
+
+def background_join(started):
+    """Wait for a ``background_start`` child, print its output and return
+    the launch counts of its phase; a child that fails or is still running
+    after 600 s more fails the smoke."""
+    name, proc, log, log_path, out_path, t_start = started
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    with open(log_path) as f:
+        sys.stdout.write(f.read())
+    print(f"[{name}] read {time.perf_counter() - t_start:.1f} s after its "
+          f"child process started beside the other phases; waiting for it "
+          f"added {time.perf_counter() - t0:.1f} s")
+    if proc.returncode:
+        raise AssertionError(f"[{name}] its child process exited "
+                             f"{proc.returncode}")
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def background_phase(name, arg, out_path):
+    """Run phase ``name`` in this process (``--phase``) with the smoke's
+    settings and a tuning cache of its own; write its launch counts to
+    ``out_path``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop("REPRO_KERNEL_AUTOTUNE", None)
+    os.environ.pop("REPRO_KERNEL_COMPUTE_DTYPES", None)
+    fresh_tuning(name)
+    card = card_line()
+    if name == "secure-adult":
+        from repro_torch.core import all_kway, select_sum_of_variances
+        from repro_torch.data.tabular import adult_domain
+        adult = adult_domain()
+        counts = phase_secure_adult(card, adult, select_sum_of_variances(
+            all_kway(adult, 3, include_lower=True), 1.0))
+    elif name == "dnc-d200":
+        counts = phase_dnc_d200(card, arg)
+    else:
+        raise ValueError(f"no background phase {name!r}")
+    with open(out_path, "w") as f:
+        json.dump(counts, f)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--phase"]:
+        name, arg, out_path = sys.argv[2:5]
+        background_phase(name, json.loads(arg), out_path)
+        return 0
     from repro_torch.core import all_kway, select_sum_of_variances
     from repro_torch.data.tabular import (adult_domain, marginals_from_records,
                                           mixture_marginals, synth_domain,
@@ -4840,6 +5197,7 @@ def main() -> int:
     # small: a forked child's peak starts at its parent's size.
     planned = {"d500": plan_in_child(DNC_D, 2, "dnc"),
                "d200": plan_in_child(DNC_AUTO_D, 3, "auto")}
+    planned = {k: plan_in_child_read(p) for k, p in planned.items()}
     phase_build()
     rows = phase_kernels(card)
     phase_exact_edge(card)
@@ -4872,12 +5230,14 @@ def main() -> int:
         ("synth-10^%d" % SYNTH_D, engine_chains(splan)),
         ("adult", engine_chains(plan))], (plan, adult_margs))
     bf16_counts = phase_adult_bf16(card, adult, plan, adult_margs)
+    # After the last phase that gates on a time: the two host-bound phases
+    # run beside the rest from here, each in its own process.
+    background = [background_start("secure-adult"),
+                  background_start("dnc-d200", planned["d200"])]
     fresh_tuning("secure")
     opt = phase_select_device(card, plan.workload, splan.workload, splan)
     phase_select_convex(card, plan.workload, opt)
-    secure_adult_counts = phase_secure_adult(card, adult, plan)
     synth2_counts, synth2_eng, synth2_margs = phase_secure_synth2(card, synth)
-    secure_counts = (secure_adult_counts, synth2_counts)
     release_counts = (
         phase_release_adult(card, plan, adult_margs),
         phase_release_adult_tree(card, adult, synthetic_records(
@@ -4891,11 +5251,15 @@ def main() -> int:
         phase_sharded_adult(card, adult, plan, synthetic_records(
             adult, ADULT_RECORDS, SEED), synth2_eng.plan, synth2_records),
         phase_obs(card, plan, adult_margs))
-    phase_dnc_d200_auto(card, planned["d200"])
     phase_rplus_maxvar(card)
     serve_counts = phase_serve_adult(card, adult)
     phase_serve_cli(card)
     baseline_counts = tuple(phase_hdmm_synth(card) + phase_hdmm_prefix(card))
+    # joined before the LM phases, which want the card's memory and the
+    # host's
+    secure_adult_counts, d200_counts = [background_join(b)
+                                        for b in background]
+    secure_counts = (secure_adult_counts, synth2_counts)
     phase_lm_serve(card)
     lm_train_counts = phase_lm_train(card)
     free_device_memory()
@@ -4905,7 +5269,8 @@ def main() -> int:
     phase_dryrun(dryrun)
     counts = (adult_counts, synth_counts) + rplus_counts + (
         tune_counts, bf16_counts) + secure_counts + release_counts \
-        + slice_counts + (serve_counts,) + baseline_counts + (lm_train_counts,)
+        + slice_counts + (d200_counts, serve_counts) + baseline_counts \
+        + (lm_train_counts,)
     launches = {"fused_chain": sum(c["fused_launches"] - c["narrow_launches"]
                                    for c in counts),
                 "fused_chain_bf16": sum(c["bf16_launches"] for c in counts),

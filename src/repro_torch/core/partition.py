@@ -1,7 +1,10 @@
 r"""Attribute partitioning for divide-and-conquer planning (DESIGN.md §12).
 
 The port's copy of ``repro.core.partition`` (host numpy, unchanged): the
-same blocks and the same index arrays for the same workload.
+same blocks and the same index arrays for the same workload.  Plus
+:func:`group_rows`, the port's one grouping of equal integer rows (the
+straddlers by their parts' shapes, the mixture marginals' cliques by their
+sizes).
 
 The monolithic PlanTable IR tops out where the downward closure stops fitting
 in memory (d=100 all-≤3-way is 166k cliques / 1.3M incidence entries; d=500
@@ -415,3 +418,25 @@ def decompose(workload: MarginalWorkload, partition: Partition,
     return Decomposition(workload, partition, block_workloads, row_block,
                          row_pos, part_row, part_block, part_pos, part_cells,
                          float(w_row[row_block == ROW_EMPTY].sum()), w_row)
+
+
+def group_rows(sig: np.ndarray) -> List[np.ndarray]:
+    """The groups of equal rows of an integer matrix: index arrays, each
+    ascending, the groups in the lexicographic order of their rows.  The
+    columns are packed into as few int64 words as hold them before the one
+    stable sort (a sort over many narrow columns is slow)."""
+    sig = np.asarray(sig, np.int64)
+    if not len(sig):
+        return []
+    sig = sig - sig.min(axis=0)
+    words, word, span = [], np.zeros(len(sig), np.int64), 1
+    for j, rj in enumerate((sig.max(axis=0) + 1).tolist()):
+        if span * rj >= 1 << 62:
+            words.append(word)
+            word, span = np.zeros(len(sig), np.int64), 1
+        word = word * rj + sig[:, j]
+        span *= rj
+    packed = np.stack(words + [word], axis=1)
+    order = np.lexsort(packed.T[::-1])
+    cuts = np.flatnonzero(np.any(np.diff(packed[order], axis=0), axis=1)) + 1
+    return np.split(order, cuts)

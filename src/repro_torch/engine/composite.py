@@ -27,23 +27,88 @@ Cut-straddling workload cliques are reconstructed by the product-of-blocks
 correction: the normalized outer product of their per-block part tables,
 ``(⊗_p M̂_p) / T̂^{n_parts−1}`` with T̂ the shared noisy total, in float64
 on the host.  The JAX package walks the straddlers one by one; the port
-groups them by their parts' shapes and forms each group's products as one
-broadcast product, with the same roundings.
+groups them by their parts' shapes (:func:`straddler_groups`, numpy over
+every straddler at once) and forms each group's products as one broadcast
+product, with the same roundings: every table bit-equal to the JAX
+package's.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from itertools import chain
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.domain import Clique
 from repro_torch.core.mechanism import Measurement, noise_dtype
-from repro_torch.core.partition import ROW_EMPTY
+from repro_torch.core.partition import ROW_EMPTY, group_rows
 from repro_torch.engine.engine import EngineStats, ReleaseServing
 from repro_torch.kernels.kron_matvec._layout import resolve_device
 from repro_torch.obs import TRACER
 from repro_torch.release import POSTPROCESS_MODES, postprocess_release
+
+
+class StraddlerGroup(NamedTuple):
+    """Straddling workload rows whose parts have one tuple of shapes and one
+    transpose back to sorted attribute order.  ``rows`` ascend; part ``p``
+    of member ``i`` is ``block_workloads[blocks[i, p]].cliques[pos[i, p]]``,
+    parts in the JAX package's ``Decomposition.parts_of`` order."""
+
+    rows: np.ndarray
+    blocks: np.ndarray
+    pos: np.ndarray
+
+
+def straddler_groups(d) -> Dict[tuple, StraddlerGroup]:
+    """``{(part shapes, perm): StraddlerGroup}`` of a Decomposition, groups
+    in the order of their first row.  One integer signature per straddler
+    (its parts' widths, their attributes' sizes and the argsort of its
+    attributes taken part after part), sorted once: no Python step per
+    straddler."""
+    order = np.argsort(d.part_row, kind="stable")
+    if not order.size:
+        return {}
+    prow = d.part_row[order]
+    start = np.flatnonzero(np.r_[True, prow[1:] != prow[:-1]])
+    count = np.diff(np.r_[start, prow.size])
+    n_p = int(count.max())
+    live = np.arange(n_p) < count[:, None]                     # (R, n_p)
+    idx = order[np.minimum(start[:, None] + np.arange(n_p), prow.size - 1)]
+    # every block clique's attributes, padded with -1, one row each
+    cl = [c for bw in d.block_workloads for c in bw.cliques]
+    lens = np.fromiter(map(len, cl), np.int64, len(cl))
+    k = int(lens.max())
+    attrs = np.full((len(cl), k), -1, np.int64)
+    attrs[np.repeat(np.arange(len(cl)), lens),
+          np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
+                                                 lens)] = np.fromiter(
+        chain.from_iterable(cl), np.int64, int(lens.sum()))
+    offs = np.cumsum([0] + [len(bw.cliques) for bw in d.block_workloads])
+    a = attrs[offs[d.part_block[idx]] + d.part_pos[idx]]      # (R, n_p, k)
+    a[~live] = -1
+    valid = (a >= 0).reshape(len(start), -1)
+    flat = a.reshape(len(start), -1)
+    sizes = np.asarray(d.workload.domain.sizes, np.int64)
+    shape = np.where(flat >= 0, sizes[np.maximum(flat, 0)], 0)
+    # the argsort of the concatenated part attributes, in compact positions
+    srt = np.argsort(np.where(valid, flat, np.iinfo(np.int64).max), axis=1,
+                     kind="stable")
+    compact = np.cumsum(valid, axis=1) - 1
+    perm = np.where(np.take_along_axis(valid, srt, 1),
+                    np.take_along_axis(compact, srt, 1), -1)
+    sig = np.concatenate([(a >= 0).sum(axis=2), shape, perm], axis=1)
+    rows = prow[start]
+    groups: Dict[tuple, StraddlerGroup] = {}
+    for mem in sorted(group_rows(sig), key=lambda m: m[0]):
+        rep = int(mem[0])
+        n = int(count[rep])
+        shapes = tuple(tuple(int(sizes[x]) for x in a[rep, p] if x >= 0)
+                       for p in range(n))
+        key = (shapes, tuple(int(x) for x in perm[rep] if x >= 0))
+        groups[key] = StraddlerGroup(rows[mem], d.part_block[idx[mem, :n]],
+                                     d.part_pos[idx[mem, :n]])
+    return groups
 
 
 class CompositeEngine(ReleaseServing):
@@ -69,7 +134,7 @@ class CompositeEngine(ReleaseServing):
             e.stats.measure_signatures for e in self._engines)
         self.stats.reconstruct_signatures = sum(
             e.stats.reconstruct_signatures for e in self._engines)
-        self._straddlers: Optional[Dict[tuple, list]] = None
+        self._straddlers: Optional[Dict[tuple, StraddlerGroup]] = None
 
     # ------------------------------------------------------------------ serve
     def block_generators(self, gen: torch.Generator) -> List[torch.Generator]:
@@ -102,29 +167,10 @@ class CompositeEngine(ReleaseServing):
         """Each block's reconstructed sub-workload (in-block rows + parts)."""
         return [eng.reconstruct(measurements) for eng in self._engines]
 
-    def _straddler_groups(self) -> Dict[tuple, List[Tuple[int, list]]]:
-        """Straddling workload rows grouped by the shapes of their parts and
-        the transpose back to sorted attribute order: ``{(part shapes,
-        perm): [(row, [(block, part clique), ...]), ...]}``, parts in the
-        JAX package's ``Decomposition.parts_of`` order.  Built once."""
+    def _straddler_groups(self) -> Dict[tuple, StraddlerGroup]:
+        """The straddlers grouped once (:func:`straddler_groups`)."""
         if self._straddlers is None:
-            d = self.plan.decomposition
-            dom = d.workload.domain
-            order = np.argsort(d.part_row, kind="stable")
-            rows = d.part_row[order]
-            cut = np.flatnonzero(np.diff(rows)) + 1
-            groups: Dict[tuple, List[Tuple[int, list]]] = {}
-            for grp in np.split(order, cut):
-                if not grp.size:
-                    continue
-                parts = [(int(d.part_block[i]), d.part_clique(i))
-                         for i in grp]
-                attrs = [a for _, pc in parts for a in pc]
-                key = (tuple(dom.clique_sizes(pc) for _, pc in parts),
-                       tuple(np.argsort(np.asarray(attrs)).tolist()))
-                groups.setdefault(key, []).append(
-                    (int(d.part_row[grp[0]]), parts))
-            self._straddlers = groups
+            self._straddlers = straddler_groups(self.plan.decomposition)
         return self._straddlers
 
     def _assemble(self, block_tables: List[Dict[Clique, np.ndarray]],
@@ -135,7 +181,7 @@ class CompositeEngine(ReleaseServing):
         wk = d.workload.cliques
         rows = {c: r for r, c in enumerate(wk)}
         out: Dict[Clique, np.ndarray] = {}
-        wanted = set()
+        wanted = np.zeros(len(wk), bool)
         for c in cliques:
             r = rows[c]
             b = int(d.row_block[r])
@@ -144,17 +190,20 @@ class CompositeEngine(ReleaseServing):
             elif b == ROW_EMPTY:
                 out[c] = np.asarray([total], dtype=float)
             else:
-                wanted.add(r)
-        for (shapes, perm), group in self._straddler_groups().items():
-            members = [(r, parts) for r, parts in group if r in wanted]
-            if not members:
+                wanted[r] = True
+        for (shapes, perm), grp in self._straddler_groups().items():
+            keep = wanted[grp.rows]
+            if not keep.any():
                 continue
+            members = grp.rows[keep].tolist()
             g = len(members)
             tab = None
             for p, shape in enumerate(shapes):
-                pt = np.stack([block_tables[parts[p][0]][parts[p][1]]
-                               for _, parts in members]
-                              ).astype(np.float64).reshape((g,) + shape)
+                pt = np.stack([
+                    block_tables[b][d.block_workloads[b].cliques[q]]
+                    for b, q in zip(grp.blocks[keep, p].tolist(),
+                                    grp.pos[keep, p].tolist())]
+                ).astype(np.float64).reshape((g,) + shape)
                 if tab is None:
                     tab = pt
                 else:
@@ -168,7 +217,7 @@ class CompositeEngine(ReleaseServing):
                 tab = tab / den
             tab = np.transpose(tab, (0,) + tuple(q + 1 for q in perm))
             tab = np.ascontiguousarray(tab).reshape(g, -1)
-            for i, (r, _) in enumerate(members):
+            for i, r in enumerate(members):
                 out[wk[r]] = tab[i]
         return {c: out[c] for c in cliques}
 

@@ -44,10 +44,10 @@ def junction_order(domain: Domain, cliques: Sequence[Clique],
     (default: pick the attribute whose best clique overlaps the sampled set
     the most, ties by index — chains and trees come out in exact Markov
     order).  The JAX package scans every clique for every attribute at
-    every step; the port keeps each clique's overlap count and takes each
-    attribute's best clique as one segmented maximum over the
-    attribute-clique incidence per step (the same steps, in time linear in
-    the incidence per step, so wide workloads order in seconds).
+    every step; the port keeps each clique's overlap count and each
+    attribute's best key, and a step updates them over the incidences of
+    the cliques that hold the sampled attribute only (the same steps, so
+    wide workloads order in seconds).
     """
     cliques = [c for c in cliques if c]
     covered = set(i for c in cliques for i in c)
@@ -57,22 +57,24 @@ def junction_order(domain: Domain, cliques: Sequence[Clique],
                          "workload clique; cannot sample them")
     d, m = domain.n_attrs, len(cliques)
     lens = np.fromiter(map(len, cliques), np.int64, count=m)
+    first = np.cumsum(lens) - lens          # clique j's first incidence
     inc_clique = np.repeat(np.arange(m, dtype=np.int64), lens)
     inc_attr = np.fromiter((a for c in cliques for a in c), np.int64,
                            count=int(lens.sum()))
     by_attr = np.lexsort((inc_clique, inc_attr))
-    inc_clique = inc_clique[by_attr]
     starts = np.searchsorted(inc_attr[by_attr], np.arange(d))
     # key of clique j: (overlap, -len, -j) as one int64, larger is better
     span = int(lens.max()) + 1
     static = (span - lens) * m + (m - 1 - np.arange(m, dtype=np.int64))
     overlap = np.zeros(m, np.int64)
+    # each attribute's best key over its cliques; a step raises the keys
+    # of the cliques that hold the sampled attribute only, so each of
+    # their attributes' best becomes the max of its old best and theirs
+    best = np.maximum.reduceat(static[inc_clique[by_attr]], starts)
     sampled = np.zeros(d, bool)
     steps: List[SamplingStep] = []
     fixed = None if attr_order is None else [int(a) for a in attr_order]
     for t in range(d if fixed is None else len(fixed)):
-        score = (overlap * (span * m) + static)[inc_clique]
-        best = np.maximum.reduceat(score, starts)          # per attribute
         if fixed is None:
             k = np.where(sampled, -1, best // (span * m))
             i = int(np.argmax(k))                          # ties: lowest id
@@ -83,7 +85,13 @@ def junction_order(domain: Domain, cliques: Sequence[Clique],
         steps.append((i, c, parents))
         sampled[i] = True
         hi = starts[i + 1] if i + 1 < d else len(inc_clique)
-        overlap[inc_clique[starts[i]:hi]] += 1
+        grown = inc_clique[by_attr[starts[i]:hi]]
+        overlap[grown] += 1
+        n = lens[grown]
+        at = np.repeat(first[grown] - np.cumsum(n) + n, n) + np.arange(
+            int(n.sum()))
+        np.maximum.at(best, inc_attr[at], np.repeat(
+            overlap[grown] * (span * m) + static[grown], n))
     return steps
 
 

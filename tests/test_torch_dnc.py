@@ -344,6 +344,185 @@ def test_composite_engine_straddler_products_equal_one_by_one():
         assert np.array_equal(got[c], want), c
 
 
+def _mixed_all3(d):
+    """d attributes, sizes (i % 9) + 2, all <=3-way with lower orders (the
+    d = 200 smoke workload's shape at a small width)."""
+    cl = [()] + [c for w in (1, 2, 3) for c in combinations(range(d), w)]
+    return _both([(i % 9) + 2 for i in range(d)], cl)
+
+
+def _parts_per_row(dnc):
+    d = dnc.decomposition
+    strad = np.flatnonzero(d.row_block == ROW_STRADDLER)
+    return np.bincount(d.part_row, minlength=len(d.row_block))[strad]
+
+
+def test_auto_all3_release_equals_the_reference(monkeypatch):
+    """select(strategy="auto") past AUTO_DNC_NNZ on an all-<=3-way workload
+    of 12 attributes, split into blocks of at most 4: 2- and 3-part
+    straddlers; the JAX package's CompositeEngine, fed the port's
+    measurements, reconstructs every table to float32."""
+    S = sys.modules["repro_torch.core.select"]
+    wk, jwk = _mixed_all3(12)
+    monkeypatch.setattr(S, "AUTO_DNC_NNZ",
+                        sum(1 << len(c) for c in wk.cliques) - 1)
+    plan = select(wk, 1.0, strategy="auto", max_block=4)
+    jplan = j_select_dnc(jwk, 1.0, max_block=4)
+    assert isinstance(plan, CompositePlan) and plan.n_blocks >= 3
+    assert {2, 3} <= set(_parts_per_row(plan).tolist())
+    from repro_torch.data.tabular import mixture_marginals
+    exact = mixture_marginals(wk.domain, list(dict.fromkeys(
+        list(plan.cliques) + list(wk.cliques))), 1e4, 0)
+    eng = plan.engine(**CPU)
+    meas = eng.measure(exact, _gen(8))
+    tables = eng.reconstruct(meas)
+    want = jplan.engine(precompile=False).reconstruct(
+        {c: JMeasurement(c, np.asarray(m.omega), m.sigma2)
+         for c, m in meas.items()})
+    assert list(tables) == list(wk.cliques) and set(want) == set(wk.cliques)
+    for c in wk.cliques:
+        w = np.asarray(want[c], np.float64).ravel()
+        np.testing.assert_allclose(np.asarray(tables[c], np.float64), w,
+                                   rtol=1e-5, atol=1e-4 * max(1.0, abs(w).max()))
+
+
+def _loop_groups(d):
+    """The grouping loop ``CompositeEngine._straddler_groups`` ran before
+    it was vectorized: ``{(part shapes, perm): [(row, [(block, part
+    clique), ...]), ...]}``."""
+    dom = d.workload.domain
+    order = np.argsort(d.part_row, kind="stable")
+    rows = d.part_row[order]
+    cut = np.flatnonzero(np.diff(rows)) + 1
+    groups = {}
+    for grp in np.split(order, cut):
+        if not grp.size:
+            continue
+        parts = [(int(d.part_block[i]), d.part_clique(i)) for i in grp]
+        attrs = [a for _, pc in parts for a in pc]
+        key = (tuple(dom.clique_sizes(pc) for _, pc in parts),
+               tuple(np.argsort(np.asarray(attrs)).tolist()))
+        groups.setdefault(key, []).append((int(d.part_row[grp[0]]), parts))
+    return groups
+
+
+def _loop_assemble(eng, block_tables, total, cliques):
+    """The grouped assembly ``CompositeEngine._assemble`` ran over the
+    grouping loop's lists (``_loop_groups``), before the grouping was
+    vectorized."""
+    from repro_torch.core.partition import ROW_EMPTY
+    d = eng.plan.decomposition
+    wk = d.workload.cliques
+    rows = {c: r for r, c in enumerate(wk)}
+    out, wanted = {}, set()
+    for c in cliques:
+        r = rows[c]
+        b = int(d.row_block[r])
+        if b >= 0:
+            out[c] = block_tables[b][c]
+        elif b == ROW_EMPTY:
+            out[c] = np.asarray([total], dtype=float)
+        else:
+            wanted.add(r)
+    for (shapes, perm), group in _loop_groups(d).items():
+        members = [(r, parts) for r, parts in group if r in wanted]
+        if not members:
+            continue
+        g, tab = len(members), None
+        for p, shape in enumerate(shapes):
+            pt = np.stack([block_tables[parts[p][0]][parts[p][1]]
+                           for _, parts in members]
+                          ).astype(np.float64).reshape((g,) + shape)
+            tab = pt if tab is None else (
+                tab.reshape(tab.shape + (1,) * len(shape))
+                * pt.reshape((g,) + (1,) * (tab.ndim - 1) + shape))
+        if len(shapes) > 1:
+            tab = tab / float(total) ** (len(shapes) - 1)
+        tab = np.transpose(tab, (0,) + tuple(q + 1 for q in perm))
+        tab = np.ascontiguousarray(tab).reshape(g, -1)
+        for i, (r, _) in enumerate(members):
+            out[wk[r]] = tab[i]
+    return {c: out[c] for c in cliques}
+
+
+@pytest.mark.parametrize("d,max_block", [(9, 3), (12, 4), (14, 3)])
+def test_straddler_groups_equal_the_loop(d, max_block):
+    """The vectorized grouping has the loop's keys in the loop's order, and
+    each group the loop's members (rows and their (block, part clique)
+    pairs) in the loop's order, on forced splits with 2- and 3-part
+    straddlers."""
+    from repro_torch.engine.composite import straddler_groups
+    wk, _ = _mixed_all3(d)
+    dnc = select_dnc(wk, 1.0, max_block=max_block)
+    assert {2, 3} <= set(_parts_per_row(dnc).tolist())
+    dec = dnc.decomposition
+    want = _loop_groups(dec)
+    got = straddler_groups(dec)
+    assert list(got) == list(want)
+    for key, grp in got.items():
+        members = [(int(r), [(int(b), dec.block_workloads[b].cliques[p])
+                             for b, p in zip(bs.tolist(), ps.tolist())])
+                   for r, bs, ps in zip(grp.rows, grp.blocks, grp.pos)]
+        assert members == want[key], key
+
+
+@pytest.mark.parametrize("subset", ["all", "every_third_reversed"])
+def test_composite_assemble_equals_the_loop_assembly(subset):
+    """The assembly over the vectorized groups equals the one over the
+    loop's lists bit for bit (values, dtype, shape, order of the keys), for
+    the whole workload and for a reordered subset, raw and after
+    nonneg."""
+    wk, _ = _mixed_all3(12)
+    dnc = select_dnc(wk, 1.0, max_block=4)
+    from repro_torch.data.tabular import mixture_marginals
+    exact = mixture_marginals(wk.domain, list(dict.fromkeys(
+        list(dnc.cliques) + list(wk.cliques))), 1e4, 0)
+    eng = dnc.engine(**CPU)
+    meas = eng.measure(exact, _gen(4))
+    bt = eng._block_tables(meas)
+    total = float(np.asarray(meas[()].omega).reshape(-1)[0])
+    cliques = list(wk.cliques)
+    if subset != "all":
+        cliques = cliques[::-3]
+    for tables in (bt, [{c: np.maximum(t, 0) for c, t in b.items()}
+                        for b in bt]):
+        got = eng._assemble(tables, total, cliques)
+        want = _loop_assemble(eng, tables, total, cliques)
+        assert list(got) == list(want) == cliques
+        for c in cliques:
+            assert (np.array_equal(got[c], want[c])
+                    and got[c].dtype == want[c].dtype
+                    and got[c].shape == want[c].shape), c
+
+
+@pytest.mark.parametrize("batch_cells", [None, 64])
+def test_mixture_marginals_equal_the_per_clique_loop(monkeypatch,
+                                                     batch_cells):
+    """The batched mixture marginals equal the per-clique products and sum
+    bit for bit, for cliques of widths 0 to 4 in any order, in one batch
+    per size signature or cut into batches of at most 64 cells."""
+    import repro_torch.data.tabular as tab
+    from repro_torch.data.tabular import mixture_marginals
+    if batch_cells:
+        monkeypatch.setattr(tab, "_MIXTURE_BATCH_CELLS", batch_cells)
+    dom = Domain.create([(i % 9) + 2 for i in range(11)])
+    rng = np.random.default_rng(2)
+    cl = [()] + [c for w in (1, 2, 3, 4) for c in combinations(range(11), w)]
+    cl = [cl[i] for i in rng.permutation(len(cl))]
+    got = mixture_marginals(dom, cl, 1e6, 5)
+    rng = np.random.default_rng(5)
+    w = rng.dirichlet(np.ones(4)) * 1e6
+    probs = [rng.dirichlet(np.ones(a.size), size=4) for a in dom.attributes]
+    assert list(got) == cl
+    for c in cl:
+        t = w[:, None]
+        for i in c:
+            t = (t[:, :, None] * probs[i][:, None, :]).reshape(4, -1)
+        want = t.sum(axis=0)
+        assert (np.array_equal(got[c], want) and got[c].dtype == want.dtype
+                and got[c].shape == want.shape), c
+
+
 def test_smoke_straddler_gate_holds_the_noise_and_catches_a_wrong_table():
     """``chip_smoke.py``'s straddler gate (``straddler_dev``: the product of
     the exact parts, the delta-method sigma) holds the port's and the JAX
@@ -378,6 +557,95 @@ def test_smoke_straddler_gate_holds_the_noise_and_catches_a_wrong_table():
     c = wk.cliques[strad[0]]
     tables[c] = tables[c] * 1.01
     assert smoke.straddler_dev(dnc, tables, exact, strad) > 6.0
+
+
+def test_smoke_sigma_gate_equals_the_row_loop_and_catches_a_wrong_table():
+    """``chip_smoke.py``'s in-block gate (``sigma_dev``, batched by width
+    and cells) gives the per-row max |table - exact| / sigma over the
+    in-block and 1-way rows of a forced split, holds a release within 6
+    sigma, and puts one in-block table shifted by 7 sigma in one cell
+    above 6."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.data.tabular import mixture_marginals
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    wk, _ = _mixed_all3(12)
+    dnc = select_dnc(wk, 1.0, max_block=4)
+    inb = np.flatnonzero(dnc.decomposition.row_block >= 0)
+    assert len({len(wk.cliques[r]) for r in inb}) == 4      # widths 0 to 3
+    exact = mixture_marginals(wk.domain, list(dict.fromkeys(
+        list(dnc.cliques) + list(wk.cliques))), 1e4, 0)
+    tables, _ = dnc.engine(**CPU).release(exact, _gen(2))
+    sd = np.sqrt(dnc.variances_array())
+    want = max(float(np.abs(np.asarray(tables[wk.cliques[r]], np.float64)
+                            - exact[wk.cliques[r]]).max()) / sd[r]
+               for r in inb)
+    index = smoke.width_index(wk.cliques)
+    assert smoke.sigma_dev(dnc, tables, exact, inb) == want <= 6.0
+    assert smoke.sigma_dev(dnc, tables, exact, inb, index) == want
+    r = int(inb[len(inb) // 2])
+    c = wk.cliques[r]
+    assert len(c) == 2
+    tables[c] = np.array(exact[c], np.float64)
+    tables[c][1] += 7.0 * sd[r]
+    assert smoke.sigma_dev(dnc, tables, exact, inb, index) > 6.0
+
+
+def test_smoke_background_phase_that_fails_fails_the_smoke(tmp_path,
+                                                          monkeypatch,
+                                                          capsys):
+    """``chip_smoke.py`` runs [dnc-d200] in a child process
+    (``background_start``); ``background_join`` prints the child's output
+    and raises when the child exits non-zero, as it does here without a
+    card, so the smoke cannot pass over a phase that did not run."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.chdir(tmp_path)
+    started = smoke.background_start("dnc-d200", {"blocks": 7})
+    with pytest.raises(AssertionError, match=r"\[dnc-d200\] its child "
+                                             r"process exited 2"):
+        smoke.background_join(started)
+    out = capsys.readouterr().out
+    assert "no CUDA device" in out and "[dnc-d200] read " in out
+    assert not (tmp_path / "build" / "background" / "dnc-d200.json").exists()
+
+
+def test_smoke_straddler_check_proxy_and_second_release():
+    """``straddler_check``'s one pass gives ``sigma_dev``'s proxy sigma of
+    the straddlers and tells a second release's tables apart from the
+    first's when one cell moves by one ulp."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.data.tabular import mixture_marginals
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    wk, _ = _mixed_all3(12)
+    dnc = select_dnc(wk, 1.0, max_block=4)
+    strad = np.flatnonzero(dnc.decomposition.row_block == ROW_STRADDLER)
+    exact = mixture_marginals(wk.domain, list(dict.fromkeys(
+        list(dnc.cliques) + list(wk.cliques))), 1e4, 0)
+    eng = dnc.engine(**CPU)
+    tables, _ = eng.release(exact, _gen(1))
+    again, _ = eng.release(exact, _gen(1))
+    got = smoke.straddler_check(dnc, tables, exact, strad, again=again)
+    assert got["same"] and got["worst"] <= 6.0
+    assert got["worst"] == smoke.straddler_dev(dnc, tables, exact, strad)
+    assert got["proxy"] == pytest.approx(
+        smoke.sigma_dev(dnc, tables, exact, strad), rel=1e-12)
+    c = wk.cliques[strad[-1]]
+    again[c] = again[c].copy()
+    again[c][0] = np.nextafter(again[c][0], np.inf)
+    assert not smoke.straddler_check(dnc, tables, exact, strad,
+                                     again=again)["same"]
 
 
 def test_composite_engine_release_nonneg_and_synthesize():
@@ -470,6 +738,19 @@ def test_engine_for_composite_registers_block_engines():
     assert _ENGINE_CACHE.get(dnc, True, f32, device="cpu") is None
     for bp, be in zip(dnc.block_plans, eng.block_engines()):
         assert _ENGINE_CACHE.get(bp, True, f32, device="cpu") is be
+
+
+def test_junction_order_equals_the_reference_on_an_all3_workload():
+    """The same steps as the JAX package's scan on 14 attributes, all
+    <=3-way (455 cliques of three), in its own order and a fixed one."""
+    from repro.release.synth import junction_order as j_order
+    from repro_torch.release.synth import junction_order
+    (wk, jwk) = _mixed_all3(14)
+    order = np.random.default_rng(3).permutation(14).tolist()
+    for cl, fixed in ((list(wk.cliques), None),
+                      (list(wk.cliques)[::-1], order)):
+        assert junction_order(wk.domain, cl, fixed) == j_order(
+            jwk.domain, cl, fixed)
 
 
 @pytest.mark.parametrize("seed", range(4))
