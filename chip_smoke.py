@@ -16,8 +16,14 @@ Phases, in order; any failure exits non-zero:
    against its narrow plain version (rel 1e-2 / 2e-3 of max|plain|), its
    yardstick an einsum on operands of the same type; and HDMM's universe
    chains (one row of 10^8 cells through m = 1 ones rows on the per-axis
-   kernel, one of 100 cells on the fused one).  Then check a small
-   release against the float64 host oracles.
+   kernel, one of 100 cells on the fused one).  Then apply R_A's and Q_A's
+   Kronecker factors (residual_factors, marginal_factors) to 4 seeded
+   float32 rows with the fused kernel, for every clique of the closure of
+   all <=3-way cliques of sizes (3, 4, 5, 2) and (2, 7, 3), each against
+   the dense float64 R_A and Q_A (expand_residual, expand_marginal) within
+   rel 2e-5 (these launches are checks and are left out of the kernels
+   line's count), and check a small release against the float64 host
+   oracles.
 3. Adult, all <=3-way marginals: select_sum_of_variances -> MarginalEngine
    (device="cuda") -> release, marginals from seeded synthetic records.
    Every table within 6 sigma of the exact marginal; both kernels launched;
@@ -612,7 +618,61 @@ def phase_kernels(card):
                          path=route, compute_dtype=cd or "float32"))
         del x, x_lib, got, want, lib
         torch.cuda.empty_cache()
+    residual_dense_check(card)
     return rows
+
+
+def residual_dense_check(card):
+    """The fused kernel on the factor forms of R_A and Q_A against the
+    dense float64 matrices, for every clique of the closure of all <=3-way
+    cliques of two small domains: one launch for each chain with a live
+    factor, none on the per-axis route."""
+    from repro_torch.core import (Domain, all_kway, closure, expand_marginal,
+                                  expand_residual, marginal_factors,
+                                  residual_factors)
+    from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
+    from repro_torch.kernels.kron_matvec.stats import (chain_stats,
+                                                       reset_chain_stats)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    reset_chain_stats()
+    worst, n_cliques, live = 0.0, 0, 0
+    for sizes in ((3, 4, 5, 2), (2, 7, 3)):
+        dom = Domain.create(list(sizes))
+        x = rng.standard_normal((4, dom.universe_size())).astype(np.float32)
+        x_dev = torch.as_tensor(x, device="cuda")
+        for c in closure(all_kway(dom, 3, include_lower=True).cliques):
+            for facs, dense in ((residual_factors(dom, c),
+                                 expand_residual(dom, c)),
+                                (marginal_factors(dom, c),
+                                 expand_marginal(dom, c))):
+                got = fused_chain_matvec(facs, x_dev, dom.sizes)
+                got = got.double().cpu().numpy()
+                want = x.astype(np.float64) @ dense.T
+                err = float(np.abs(got - want).max()
+                            / max(np.abs(want).max(), 1e-30))
+                if not (got.shape == want.shape and np.isfinite(got).all()
+                        and err <= REL_TOL):
+                    raise AssertionError(
+                        f"fused chain on {sizes} clique {c} disagrees with "
+                        f"the dense float64 matrix: rel err {err:.3e}")
+                worst = max(worst, err)
+                live += any(f is not None for f in facs)
+            n_cliques += 1
+    torch.cuda.synchronize()
+    st = chain_stats()
+    secs = time.perf_counter() - t0
+    print(f"[kernels] residual dense check | sizes (3,4,5,2) and (2,7,3), "
+          f"{n_cliques} cliques of the <=3-way closures, R_A and Q_A on 4 "
+          f"float32 rows: worst rel err {worst:.3e} (bound {REL_TOL}) against "
+          f"expand_residual / expand_marginal in float64; fused launches "
+          f"{st['fused_launches']} (not in the kernels line's count), "
+          f"per-axis launches {st['axis_launches']}; {secs:.3f} s | {card}")
+    if not (st["fused_launches"] == live and st["axis_launches"] == 0
+            and st["fallback_chains"] == 0):
+        raise AssertionError(f"residual dense check: {live} chains with a "
+                             f"live factor, launches {st}")
 
 
 def phase_small_reference():

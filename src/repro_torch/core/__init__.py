@@ -1,8 +1,9 @@
 """ResidualPlanner core in PyTorch: domain, planner IR, select, measure, reconstruct."""
 from .domain import (Attribute, Clique, Domain, MarginalWorkload, all_kway,
                      as_clique, closure, subsets)
-from .residual import (axis_coeff_vectors, p_coeff, sub_gram, sub_matrix,
-                       sub_pinv, variance_coeff)
+from .residual import (axis_coeff_vectors, expand_marginal, expand_residual,
+                       marginal_factors, p_coeff, residual_factors, sub_gram,
+                       sub_matrix, sub_pinv, variance_coeff)
 from .plantable import BasePlan, PlanTable, SigmaView, plan_table, sov_closed_form
 from .select import (Plan, select, select_convex, select_max_variance,
                      select_sum_of_variances, select_utility_constrained)

@@ -10,7 +10,8 @@ never materializing ``⊗_i V_i``.
   * ``kron_matvec_np`` / ``kron_expand`` — numpy float64 oracles, and
     ``kron_matvec_np_batched``, the dtype-preserving host chain of the secure
     path's exact tiers (int64 and Python big-int lanes), all copied from the
-    JAX package unchanged.
+    JAX package unchanged;
+  * ``kron_out_dims`` — a chain's per-axis output sizes.
 
 ``None`` factors mean "identity on that axis" and are skipped.  A factor may
 also be the string ``"ones"``: the all-ones row vector (marginalize the axis).
@@ -18,7 +19,7 @@ also be the string ``"ones"``: the all-ones row vector (marginalize the axis).
 from __future__ import annotations
 
 from functools import reduce
-from typing import Sequence, Union
+from typing import List, Sequence, Union
 
 import numpy as np
 import torch
@@ -104,3 +105,16 @@ def kron_expand(factors: Sequence[np.ndarray]) -> np.ndarray:
     mats = [np.asarray(f, dtype=np.float64) for f in factors]
     return reduce(np.kron, mats) if mats else np.ones((1, 1))
 
+
+def kron_out_dims(factors: Sequence[Factor], dims: Sequence[int]) -> List[int]:
+    """The per-axis output sizes of ``⊗_i factors[i]`` over inputs ``dims``:
+    n_i for an identity (``None``), 1 for ``"ones"``, else the factor's rows."""
+    out = []
+    for f, n in zip(factors, dims):
+        if f is None:
+            out.append(n)
+        elif isinstance(f, str):
+            out.append(1)
+        else:
+            out.append(int(np.shape(f)[0]))
+    return out

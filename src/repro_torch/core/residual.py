@@ -5,10 +5,11 @@ all ones and -1 on the (i, i+1) superdiagonal; ``R_A = ⊗_i V_i`` with
 ``V_i = 1ᵀ`` for attributes outside A and ``Sub_{|Att_i|}`` inside A.
 All objects here are tiny (per-attribute); they are the Kronecker *factors*
 used by the implicit algebra in :mod:`repro_torch.core.kron`.  The port's
-own copy of the parts of ``repro.core.residual`` the release path uses
-(numpy, unchanged).
+own copy of ``repro.core.residual`` (numpy float64, unchanged).
 """
 from __future__ import annotations
+
+from typing import List
 
 import numpy as np
 
@@ -33,6 +34,21 @@ def sub_pinv(m: int) -> np.ndarray:
 def sub_gram(m: int) -> np.ndarray:
     """Sub_m Sub_mᵀ = I + 11ᵀ  ((m-1) x (m-1)); the per-attribute covariance factor."""
     return np.eye(m - 1) + np.ones((m - 1, m - 1))
+
+
+def residual_factors(domain: Domain, clique: Clique) -> List:
+    """Kronecker factors of R_A: 'ones' outside the clique, Sub inside."""
+    facs: List = []
+    cl = set(clique)
+    for i, attr in enumerate(domain.attributes):
+        facs.append(sub_matrix(attr.size) if i in cl else "ones")
+    return facs
+
+
+def marginal_factors(domain: Domain, clique: Clique) -> List:
+    """Kronecker factors of Q_A: 'ones' outside the clique, identity (None) inside."""
+    cl = set(clique)
+    return [None if i in cl else "ones" for i in range(domain.n_attrs)]
 
 
 def p_coeff(domain: Domain, clique: Clique) -> float:
@@ -70,3 +86,30 @@ def axis_coeff_vectors(domain: Domain
     sizes = np.asarray(domain.sizes, dtype=np.float64)
     frac = (sizes - 1.0) / sizes
     return frac, frac, sizes ** -2.0, sizes ** -1.0
+
+
+def sigma_cov_factors(domain: Domain, clique: Clique) -> List[np.ndarray]:
+    """Kronecker factors of Σ_A = ⊗_{i∈A} Sub_i Sub_iᵀ (1x1 [1] for empty clique)."""
+    if not clique:
+        return [np.ones((1, 1))]
+    return [sub_gram(domain.attributes[i].size) for i in clique]
+
+
+def expand_residual(domain: Domain, clique: Clique) -> np.ndarray:
+    """Materialize R_A (tests / tiny domains only)."""
+    from .kron import kron_expand
+    facs = []
+    cl = set(clique)
+    for i, attr in enumerate(domain.attributes):
+        facs.append(sub_matrix(attr.size) if i in cl else np.ones((1, attr.size)))
+    return kron_expand(facs)
+
+
+def expand_marginal(domain: Domain, clique: Clique) -> np.ndarray:
+    """Materialize Q_A (tests / tiny domains only)."""
+    from .kron import kron_expand
+    facs = []
+    cl = set(clique)
+    for i, attr in enumerate(domain.attributes):
+        facs.append(np.eye(attr.size) if i in cl else np.ones((1, attr.size)))
+    return kron_expand(facs)

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.domain import Clique
-from repro_torch.core.kron import kron_matvec_batched
+from repro_torch.core.kron import kron_matvec_batched, kron_out_dims
 from repro_torch.core.mechanism import (_NP_DTYPES, Measurement, _group_noise,
                                         _stack_marginals, draw_noise,
                                         noise_dtype, noise_offsets)
@@ -161,7 +161,7 @@ class PlusEngine(ReleaseServing, ChainRegistry):
                 factors.append(b.W @ t_i)
                 epilogue.append(None)
                 posts.append(None)
-        chain_out = tuple(f.shape[0] for f in factors)
+        chain_out = tuple(kron_out_dims(factors, in_dims))
         return dict(factors=factors, in_dims=in_dims, epilogue=tuple(epilogue),
                     chain_out=chain_out, posts=posts)
 

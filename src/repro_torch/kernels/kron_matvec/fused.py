@@ -257,6 +257,12 @@ def _plan(fshapes, dims, batch, budget, epilogue, rows, compute_dtype
                      epilogue, compute_dtype)
 
 
+def fused_cache_info():
+    """``cache_info()`` of the launch-plan cache: one entry for each chain
+    shape, batch, budget, epilogue, row count and operand type planned."""
+    return _plan.cache_info()
+
+
 def plan_chain(factors: Sequence, dims: Sequence[int], batch: int = 1,
                smem_budget: Optional[int] = None,
                epilogue: Optional[Sequence[Optional[str]]] = None,

@@ -68,6 +68,10 @@ class PDef(NamedTuple):
     init: str = "normal"        # normal | zeros | ones
 
 
+def is_pdef(x) -> bool:
+    return isinstance(x, PDef)
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` on every leaf of a nested dict/list tree (and on the matching
     leaves of the trees ``rest``), keeping the structure."""
@@ -95,6 +99,11 @@ def tree_paths(tree, sep: str = "/", prefix: str = ""):
         return {n: x for i, v in enumerate(tree)
                 for n, x in tree_paths(v, sep, f"{prefix}{i}{sep}").items()}
     return {prefix[:-len(sep)]: tree}
+
+
+def axes_from_defs(defs):
+    """The logical axes of a tree of PDef leaves, in its structure."""
+    return tree_map(lambda pd: pd.axes, defs)
 
 
 def init_from_defs(defs, gen: torch.Generator, dtype=torch.float32,

@@ -62,10 +62,10 @@ from repro_torch.kernels.kron_matvec._layout import resolve_device
 
 from .config import ModelConfig, torch_dtype
 from .layers import (KV_CACHE_AXES, MLA_CACHE_AXES, XATTN_CACHE_AXES, PDef,
-                     attn_apply, attn_defs, bidir_attn_mesh,
-                     blockwise_attention, init_from_defs, mla_apply, mla_defs,
-                     rms_norm, swiglu_apply, swiglu_defs, tree_leaves,
-                     tree_map, xattn_decode_mesh)
+                     attn_apply, attn_defs, axes_from_defs, bidir_attn_mesh,
+                     blockwise_attention, init_from_defs, is_pdef, mla_apply,
+                     mla_defs, rms_norm, swiglu_apply, swiglu_defs,
+                     tree_leaves, tree_map, xattn_decode_mesh)
 from .moe import moe_apply, moe_defs
 from .recurrent import (RNN_CACHE_AXES, mlstm_apply, mlstm_defs,
                         rglru_apply, rglru_defs, slstm_apply, slstm_defs)
@@ -190,19 +190,14 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     def walk(t):
         if isinstance(t, list):
             return [walk(g) for g in t]
-        return {k: walk(v) if not isinstance(v, PDef) else make(k, v)
+        return {k: make(k, v) if is_pdef(v) else walk(v)
                 for k, v in t.items()}
 
     return walk(cache_defs(cfg, batch, seq))
 
 
-def _axes(defs):
-    """The logical axes of a tree of PDef leaves, in its structure."""
-    return tree_map(lambda pd: pd.axes, defs)
-
-
 def cache_axes(cfg: ModelConfig, batch: int, seq: int):
-    return _axes(cache_defs(cfg, batch, seq))
+    return axes_from_defs(cache_defs(cfg, batch, seq))
 
 
 def place_caches(caches, cfg: ModelConfig):
@@ -475,7 +470,7 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _check_layout(defs, tree, path="params"):
-    if isinstance(defs, PDef):
+    if is_pdef(defs):
         if tuple(tree.shape) != tuple(defs.shape):
             raise ValueError(f"{path}: shape {tuple(tree.shape)}, the config "
                              f"needs {tuple(defs.shape)}")
@@ -544,10 +539,14 @@ class Model(ParamTree):
                 _tensor(a).to(dev), param_spec(mesh, pd.axes)),
             params, model_defs(cfg)), mesh)
 
+    def param_defs(self):
+        """The parameter tree's PDef leaves (:func:`model_defs`)."""
+        return model_defs(self.cfg)
+
     def param_axes(self):
         """The logical axes of every parameter, in the parameter tree's
         structure."""
-        return _axes(model_defs(self.cfg))
+        return axes_from_defs(self.param_defs())
 
     def _rules(self):
         """The mesh context this model runs in (none without a mesh): the

@@ -174,6 +174,12 @@ class ChainCost:
     t_overhead: float
     predicted_s: float           # max(compute, memory) * slowdown + overhead
 
+    def as_dict(self) -> dict:
+        return {"flops": self.flops, "hbm_bytes": self.hbm_bytes,
+                "intensity": round(self.intensity, 3), "blocks": self.blocks,
+                "smem_bytes": self.smem_bytes, "fits": self.fits,
+                "slowdown": self.slowdown, "predicted_s": self.predicted_s}
+
 
 def _itemsize(dtype_name: str) -> int:
     return {"float32": 4, "bfloat16": 2, "float16": 2}[str(dtype_name)]
@@ -219,6 +225,12 @@ class CostModel:
 
     def __init__(self, device: Optional[DeviceSpec] = None):
         self.device = detect_device() if device is None else device
+
+    def chain_flops(self, in_dims: Sequence[int],
+                    fshapes: Sequence[Optional[Tuple[int, int]]],
+                    epilogue: Sequence[Optional[str]] = ()) -> int:
+        """The module's :func:`chain_flops`: operations for ONE row."""
+        return chain_flops(in_dims, fshapes, epilogue)
 
     # ------------------------------------------------------------- occupancy
     def blocks_per_sm(self, smem_bytes: int, regs: int = 0,
