@@ -2443,7 +2443,7 @@ def phase_obs(card, plan, margs):
             parents[p] = parents.get(p, 0) + 1
     same = same_family(plain, traced)
     fams = ("repro_engine_events_total", "repro_kernel_events_total",
-            "repro_engine_cache_events_total", "repro_kernel_launch_seconds",
+            "repro_engine_cache_events_total",
             "repro_chain_predicted_intensity", "repro_chain_smem_bytes",
             "repro_chain_predicted_seconds")
     text = REGISTRY.exposition()

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.kron_matvec._layout import resolve_device
+from repro_torch.obs import TRACER
 
 from .domain import Clique, Domain
 from .kron import kron_matvec, kron_matvec_batched, kron_matvec_np
@@ -163,35 +164,53 @@ def measure(plan: Plan, marginals: Mapping[Clique, np.ndarray],
     dtype = noise_dtype() if dtype is None else dtype
     if dtype not in _NP_DTYPES:
         raise TypeError(f"noise dtype {dtype}: expected float32 or float64")
-    z_all = draw_noise(plan, gen, dev, dtype)
-    offs = noise_offsets(plan)
+    with TRACER.span("measure.prep") as sp:
+        z_all = draw_noise(plan, gen, dev, dtype)
+        offs = noise_offsets(plan)
+        groups = signature_groups(plan.domain, plan.cliques) if batched \
+            else {}
+        if sp:
+            sp.set(cliques=len(plan.cliques), groups=len(groups))
     if not batched:
         return _measure_loop(plan, marginals, z_all, offs, use_kernel, dtype)
     np_dtype = _NP_DTYPES[dtype]
     out: Dict[Clique, Measurement] = {}
-    for dims, cliques in signature_groups(plan.domain, plan.cliques).items():
+    # One span per phase of each group: the host stack (and the chain's
+    # factors), copies in, the chain (its own kernel.chain span), the wait
+    # and copy back, the scatter.
+    for dims, cliques in groups.items():
         m = math.prod(dims)
         g = len(cliques)
-        v = torch.from_numpy(_stack_marginals(marginals, cliques, m, np_dtype)
-                             ).to(dev)
-        z = _group_noise(z_all, [offs[c] for c in cliques], m)
-        sig = torch.tensor([math.sqrt(plan.sigmas[c]) for c in cliques],
-                           dtype=dtype, device=dev)[:, None]
-        if not dims:
-            om = v + sig * z
-        else:
-            x = torch.cat([v, z], dim=0)                  # (2g, m)
+        with TRACER.span("measure.stack") as sp:
+            host = _stack_marginals(marginals, cliques, m, np_dtype)
             factors = [sub_matrix(n) for n in dims]
+            if sp:
+                sp.set(dims=dims, g=g)
+        with TRACER.span("measure.h2d") as sp:
+            v = torch.from_numpy(host).to(dev)
+            z = _group_noise(z_all, [offs[c] for c in cliques], m)
+            sig = torch.tensor([math.sqrt(plan.sigmas[c]) for c in cliques],
+                               dtype=dtype, device=dev)[:, None]
+            if dims:
+                x = torch.cat([v, z], dim=0)              # (2g, m)
+            if sp:
+                sp.set(dims=dims, g=g, bytes=host.nbytes)
+        if dims:
             if use_kernel:
                 from repro_torch.kernels.kron_matvec.fused import \
                     fused_chain_matvec
                 y = fused_chain_matvec(factors, x, dims)
             else:
                 y = kron_matvec_batched(factors, x, dims)
-            om = y[:g] + sig * y[g:]
-        om = om.cpu().numpy()
-        for i, c in enumerate(cliques):
-            out[c] = Measurement(c, om[i], plan.sigmas[c])
+        with TRACER.span("measure.d2h") as sp:
+            om = (y[:g] + sig * y[g:] if dims else v + sig * z).cpu().numpy()
+            if sp:
+                sp.set(dims=dims, g=g, bytes=om.nbytes)
+        with TRACER.span("measure.scatter") as sp:
+            for i, c in enumerate(cliques):
+                out[c] = Measurement(c, om[i], plan.sigmas[c])
+            if sp:
+                sp.set(dims=dims, g=g)
     return out
 
 

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.kron_matvec._layout import resolve_device
+from repro_torch.obs import TRACER
 
 from .domain import Clique, Domain, subsets
 from .kron import kron_matvec_batched, kron_matvec_np
@@ -176,15 +177,33 @@ def reconstruct_all_batched(plan: Plan, measurements: Mapping[Clique, Measuremen
     torch path otherwise.  Returns float32 host arrays.
     """
     dev = resolve_device(device)
-    cliques = list(plan.workload.cliques if cliques is None else cliques)
+    with TRACER.span("reconstruct.prep") as sp:
+        cliques = list(plan.workload.cliques if cliques is None else cliques)
+        groups = signature_groups(plan.domain, cliques)
+        if sp:
+            sp.set(cliques=len(cliques), groups=len(groups))
     out: Dict[Clique, np.ndarray] = {}
-    for sizes, group in signature_groups(plan.domain, cliques).items():
+    # One span per phase of each group, as in measure: host embedding (and
+    # the chain's factors), copy in, the chain (kernel.chain), the wait and
+    # copy back, the views.
+    for sizes, group in groups.items():
         if not sizes:
-            for c in group:
-                out[c] = np.asarray(measurements[()].omega, dtype=float).reshape(-1)
+            with TRACER.span("reconstruct.slice") as sp:
+                for c in group:
+                    out[c] = np.asarray(measurements[()].omega,
+                                        dtype=float).reshape(-1)
+                if sp:
+                    sp.set(dims=sizes, g=len(group))
             continue
-        xt = torch.from_numpy(embed_group(plan, measurements, group)).to(dev)
-        factors = u_chain_factors(plan.domain, group[0])
+        with TRACER.span("reconstruct.embed") as sp:
+            host = embed_group(plan, measurements, group)
+            factors = u_chain_factors(plan.domain, group[0])
+            if sp:
+                sp.set(dims=sizes, g=len(group))
+        with TRACER.span("reconstruct.h2d") as sp:
+            xt = torch.from_numpy(host).to(dev)
+            if sp:
+                sp.set(dims=sizes, g=len(group), bytes=host.nbytes)
         if use_kernel:
             from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
             # Reconstruction carries no noise lanes: a tuned narrow operand
@@ -192,9 +211,15 @@ def reconstruct_all_batched(plan: Plan, measurements: Mapping[Clique, Measuremen
             y = fused_chain_matvec(factors, xt, sizes, allow_narrow=True)
         else:
             y = kron_matvec_batched(factors, xt, sizes)
-        y = y.cpu().numpy()
-        for i, c in enumerate(group):
-            out[c] = y[i]
+        with TRACER.span("reconstruct.d2h") as sp:
+            y = y.cpu().numpy()
+            if sp:
+                sp.set(dims=sizes, g=len(group), bytes=y.nbytes)
+        with TRACER.span("reconstruct.slice") as sp:
+            for i, c in enumerate(group):
+                out[c] = y[i]
+            if sp:
+                sp.set(dims=sizes, g=len(group))
     return out
 
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.kron_matvec._layout import resolve_device
+from repro_torch.obs import TRACER
 
 from .domain import Clique, MarginalWorkload, closure, subsets
 from .plantable import BasePlan, PlanTable, plan_table, sov_closed_form
@@ -222,15 +223,19 @@ def select_sum_of_variances(workload: MarginalWorkload, pcost_budget: float = 1.
     zero objective weight) get a vanishing budget sliver, computed overflow-safe
     (see :func:`repro_torch.core.plantable.sov_closed_form`).
     """
-    routed = _route_strategy(strategy, workload, "sum_of_variances",
-                             pcost_budget, weights, blocks, max_block, {})
-    if routed is not None:
-        return routed
-    table = plan_table(workload) if table is None else table
-    v = table.sov_coeffs(weights)
-    sig = sov_closed_form(table.p, v, pcost_budget)
-    return Plan(table, sig, "sum_of_variances",
-                pcost=table.pcost(sig), loss_value=float(np.dot(v, sig)))
+    with TRACER.span("plan.select") as sp:
+        if sp:
+            sp.set(objective="sum_of_variances", strategy=strategy,
+                   cliques=len(workload.cliques))
+        routed = _route_strategy(strategy, workload, "sum_of_variances",
+                                 pcost_budget, weights, blocks, max_block, {})
+        if routed is not None:
+            return routed
+        table = plan_table(workload) if table is None else table
+        v = table.sov_coeffs(weights)
+        sig = sov_closed_form(table.p, v, pcost_budget)
+        return Plan(table, sig, "sum_of_variances",
+                    pcost=table.pcost(sig), loss_value=float(np.dot(v, sig)))
 
 
 def _maxvar_eval_fp64(mu, p, rows, cols, vals, cw, c, n, m):

@@ -176,8 +176,8 @@ class ChainRegistry:
 
         Predicted arithmetic intensity, shared-memory footprint and runtime
         (:mod:`repro_torch.roofline.cost_model`, the row of the engine's
-        device) sit next to the measured ``repro_kernel_launch_seconds``
-        histogram under the same ``chain`` label.  The JAX package's VMEM
+        device) under the ``chain`` label that ``kernel.chain`` spans
+        carry.  The JAX package's VMEM
         gauge (``repro_chain_vmem_bytes``) becomes the planned shared-memory
         bytes of one block, ``repro_chain_smem_bytes``.
         """
@@ -207,13 +207,16 @@ class ChainRegistry:
         """Run every planned chain, epilogue included, once on zeros: builds
         and loads the kernels and touches every launch shape the serving
         path will use."""
-        for key, (cp, factors, batch) in self._chain_plans.items():
-            x = torch.zeros((batch, cp.n_in), dtype=torch.float32,
-                            device=self.device)
-            fused_chain_matvec(factors, x, key[0], epilogue=cp.epilogue,
-                               allow_narrow=self._chain_allow_narrow(key))
-            self.stats.bump("compile_warmups")
-        torch.cuda.synchronize(self.device)
+        with TRACER.span("engine.warmup") as sp:
+            if sp:
+                sp.set(chains=len(self._chain_plans))
+            for key, (cp, factors, batch) in self._chain_plans.items():
+                x = torch.zeros((batch, cp.n_in), dtype=torch.float32,
+                                device=self.device)
+                fused_chain_matvec(factors, x, key[0], epilogue=cp.epilogue,
+                                   allow_narrow=self._chain_allow_narrow(key))
+                self.stats.bump("compile_warmups")
+            torch.cuda.synchronize(self.device)
 
     def chain_plans(self) -> List[dict]:
         """Layout report: one row per planned chain (for ops/debugging)."""
@@ -325,36 +328,45 @@ class MarginalEngine(ReleaseServing, ChainRegistry):
 
     def __init__(self, plan: Plan, use_kernel: Optional[bool] = None,
                  precompile: bool = True, dtype=None, device=None):
-        self.plan = plan
-        self.device = resolve_device(device)
-        self.use_kernel = True if use_kernel is None else use_kernel
-        self.dtype = noise_dtype() if dtype is None else dtype
-        self.stats = EngineStats()
-        self._measure_groups = signature_groups(plan.domain, plan.cliques)
-        self._reconstruct_groups = signature_groups(plan.domain,
-                                                    plan.workload.cliques)
-        self.stats.measure_signatures = len(self._measure_groups)
-        self.stats.reconstruct_signatures = len(self._reconstruct_groups)
-        self._chain_plans: Dict[tuple, tuple] = {}
-        for dims, cliques in self._measure_groups.items():
-            if dims:
-                self._register_chain([sub_matrix(n) for n in dims], dims,
-                                     2 * len(cliques), role="measure")
-        for dims, cliques in self._reconstruct_groups.items():
-            if dims:
-                self._register_chain(u_chain_factors(plan.domain, cliques[0]),
-                                     dims, len(cliques), role="reconstruct")
-        if precompile and self.use_kernel and self.device.type == "cuda":
-            self._warmup()
+        with TRACER.span("engine.build") as sp:
+            if sp:
+                sp.set(engine="marginal", cliques=len(plan.cliques))
+            self.plan = plan
+            self.device = resolve_device(device)
+            self.use_kernel = True if use_kernel is None else use_kernel
+            self.dtype = noise_dtype() if dtype is None else dtype
+            self.stats = EngineStats()
+            self._measure_groups = signature_groups(plan.domain, plan.cliques)
+            self._reconstruct_groups = signature_groups(plan.domain,
+                                                        plan.workload.cliques)
+            self.stats.measure_signatures = len(self._measure_groups)
+            self.stats.reconstruct_signatures = len(self._reconstruct_groups)
+            self._chain_plans: Dict[tuple, tuple] = {}
+            with TRACER.span("engine.register") as rsp:
+                for dims, cliques in self._measure_groups.items():
+                    if dims:
+                        self._register_chain([sub_matrix(n) for n in dims],
+                                             dims, 2 * len(cliques),
+                                             role="measure")
+                for dims, cliques in self._reconstruct_groups.items():
+                    if dims:
+                        self._register_chain(
+                            u_chain_factors(plan.domain, cliques[0]), dims,
+                            len(cliques), role="reconstruct")
+                if rsp:
+                    rsp.set(chains=len(self._chain_plans))
+            if precompile and self.use_kernel and self.device.type == "cuda":
+                self._warmup()
 
     # ------------------------------------------------------------------ serve
     def measure(self, marginals: Mapping[Clique, np.ndarray],
                 gen: torch.Generator) -> Dict[Clique, Measurement]:
         """Algorithm 1 over the whole closure: one chain per signature."""
         self.stats.bump("measure_calls")
-        with TRACER.span("engine.measure").set(
-                engine="marginal", cliques=len(self.plan.cliques),
-                use_kernel=self.use_kernel):
+        with TRACER.span("engine.measure") as sp:
+            if sp:
+                sp.set(engine="marginal", cliques=len(self.plan.cliques),
+                       use_kernel=self.use_kernel)
             return measure(self.plan, marginals, gen,
                            use_kernel=self.use_kernel, batched=True,
                            dtype=self.dtype, device=self.device)
@@ -364,8 +376,9 @@ class MarginalEngine(ReleaseServing, ChainRegistry):
                     ) -> Dict[Clique, np.ndarray]:
         """Algorithm 2 for the workload (or ``cliques``): batched merged chains."""
         self.stats.bump("reconstruct_calls")
-        with TRACER.span("engine.reconstruct").set(
-                engine="marginal", use_kernel=self.use_kernel):
+        with TRACER.span("engine.reconstruct") as sp:
+            if sp:
+                sp.set(engine="marginal", use_kernel=self.use_kernel)
             return reconstruct_all_batched(self.plan, measurements, cliques,
                                            use_kernel=self.use_kernel,
                                            device=self.device)

@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import time
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Optional, Sequence, Tuple
@@ -51,7 +50,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.obs import REGISTRY, TRACER
+from repro_torch.obs import TRACER
 from repro_torch.obs.naming import chain_label
 
 from .._build import load
@@ -71,26 +70,6 @@ _OPERANDS = {"float32": (torch.float32, 4, 0),
              "bfloat16": (torch.bfloat16, 2, 1),
              "float16": (torch.float16, 2, 2)}
 _NARROW_COUNTER = {"bfloat16": "bf16_launches", "float16": "fp16_launches"}
-
-# Host dispatch time of one chain call, labeled like the roofline gauges
-# (obs/naming.py).  CUDA launches are asynchronous and nothing here waits for
-# the card, so this is the wrapper's host time (planning, packing, queuing),
-# not the kernel's device time, as in the JAX package.
-_LAUNCH_SECONDS = REGISTRY.histogram(
-    "repro_kernel_launch_seconds",
-    "Host dispatch time of one kron-chain call (launch queued, not "
-    "device time)",
-    labels=("chain",),
-    buckets=(1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 0.1, 0.3, 1.0))
-
-
-@lru_cache(maxsize=4096)
-def _launch_series(in_dims: Tuple[int, ...], batch: int, compute_dtype: str):
-    """(chain label, its ``repro_kernel_launch_seconds`` child), resolved
-    once per chain shape."""
-    label = chain_label(in_dims, batch, compute_dtype)
-    return label, _LAUNCH_SECONDS.labels(chain=label)
-
 
 def dtype_name(dtype) -> str:
     """'float32', 'bfloat16' or 'float16' for a name or torch dtype; raises
@@ -449,43 +428,46 @@ def fused_chain_matvec(factors: Sequence, x: torch.Tensor, dims: Sequence[int],
     (``REPRO_KERNEL_AUTOTUNE``; ``off`` keeps the untuned plan), and a
     tuned narrow dtype serves only when ``allow_narrow``.
     Returns float32 of shape (B, n_out), or (n_out,) for a flat input.
+    Host work from here to the queued launch (planning, packing, the
+    launch) is one ``kernel.chain`` span when tracing is on.
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     if len(factors) != len(dims):
         raise ValueError(f"{len(factors)} factors for {len(dims)} axes")
-    x = x.to(torch.float32)
-    flat_in = x.dim() == 1
-    if flat_in:
-        x = x[None, :]
-    b = x.shape[0]
-    s_facs = [normalize_factor(f, n) for f, n in zip(factors, dims)]
-    fshapes = _shapes(s_facs, dims)
-    if rows is not None or smem_budget is not None or compute_dtype is not None:
-        plan = plan_shapes(fshapes, dims, b, smem_budget, epilogue, rows,
-                           "float32" if compute_dtype is None else compute_dtype)
-        fused = plan.fused_ok
-    else:
-        from repro_torch.kernels.autotune.tuner import resolve_shapes
-        cfg = resolve_shapes(fshapes, dims, b, epilogue, x.device)
-        plan, fused = config_launch(fshapes, dims, b, epilogue, cfg,
-                                    allow_narrow)
-    if x.shape[1] != plan.n_in:
-        raise ValueError(f"x width {x.shape[1]} != prod(dims) {plan.n_in}")
-    n_epi = sum(op is not None for op in plan.epilogue)
-    if all(s is None for s in s_facs):
-        if not n_epi:
-            return x[0] if flat_in else x
-        y = apply_epilogue(x, plan.out_dims, plan.epilogue)
-        CHAIN_STATS.inc("epilogue_axes", n_epi)
-        return y[0] if flat_in else y
-    t0 = time.monotonic()
-    label, seconds = _launch_series(plan.in_dims, b, plan.compute_dtype)
-    sp = TRACER.span("kernel.chain")
-    if sp:
-        sp.set(chain=label, fused=fused, rows=plan.rows,
-               compute_dtype=plan.compute_dtype, smem_bytes=plan.smem_bytes)
-    with sp:
+    with TRACER.span("kernel.chain") as sp:
+        x = x.to(torch.float32)
+        flat_in = x.dim() == 1
+        if flat_in:
+            x = x[None, :]
+        b = x.shape[0]
+        s_facs = [normalize_factor(f, n) for f, n in zip(factors, dims)]
+        fshapes = _shapes(s_facs, dims)
+        if (rows is not None or smem_budget is not None
+                or compute_dtype is not None):
+            plan = plan_shapes(fshapes, dims, b, smem_budget, epilogue, rows,
+                               "float32" if compute_dtype is None
+                               else compute_dtype)
+            fused = plan.fused_ok
+        else:
+            from repro_torch.kernels.autotune.tuner import resolve_shapes
+            cfg = resolve_shapes(fshapes, dims, b, epilogue, x.device)
+            plan, fused = config_launch(fshapes, dims, b, epilogue, cfg,
+                                        allow_narrow)
+        if x.shape[1] != plan.n_in:
+            raise ValueError(f"x width {x.shape[1]} != prod(dims) {plan.n_in}")
+        n_epi = sum(op is not None for op in plan.epilogue)
+        if all(s is None for s in s_facs):
+            if not n_epi:
+                return x[0] if flat_in else x
+            y = apply_epilogue(x, plan.out_dims, plan.epilogue)
+            CHAIN_STATS.inc("epilogue_axes", n_epi)
+            return y[0] if flat_in else y
+        if sp:
+            sp.set(chain=chain_label(plan.in_dims, b, plan.compute_dtype),
+                   fused=fused, rows=plan.rows,
+                   compute_dtype=plan.compute_dtype,
+                   smem_bytes=plan.smem_bytes)
         if not fused:
             CHAIN_STATS.inc("fallback_chains")
             y = _fallback_per_axis(s_facs, x, plan.in_dims)
@@ -497,6 +479,5 @@ def fused_chain_matvec(factors: Sequence, x: torch.Tensor, dims: Sequence[int],
                                              plan.epilogue, plan.compute_dtype)
             else:
                 y = _launch(plan, s_facs, x.contiguous())
-    CHAIN_STATS.inc("epilogue_axes", n_epi)
-    seconds.observe(time.monotonic() - t0)
-    return y[0] if flat_in else y
+        CHAIN_STATS.inc("epilogue_axes", n_epi)
+        return y[0] if flat_in else y

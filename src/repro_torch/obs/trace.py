@@ -26,7 +26,14 @@ Model (docs/OBSERVABILITY.md):
   are buffered and never fsynced — tracing must not serialize the worker on
   disk latency — and a hard cap on spans-per-file guards against unbounded
   logs from a long-lived server; overflow increments a ``dropped`` counter
-  instead of writing.
+  instead of writing.  A span the full ring pushes out before anyone
+  drained it increments ``evicted``; :meth:`Tracer.totals` keeps each
+  name's count and seconds since ``enable()`` whatever the ring lost.
+* **IDs** are 16 hex characters, as the JAX package's, but minted from a
+  counter that starts at a random 63-bit point in each process (re-drawn in
+  a forked child), not from ``os.urandom`` per span: unique within a
+  process, and two processes' IDs overlap only if their starts fall within
+  one run's span count of each other.
 
 Span JSON schema (one line each)::
 
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 import json
 import os
 import threading
@@ -55,8 +63,23 @@ _CTX: contextvars.ContextVar = contextvars.ContextVar("repro_span", default=None
 MAX_FILE_SPANS = 200_000
 
 
+def _id_counter() -> "itertools.count":
+    return itertools.count(int.from_bytes(os.urandom(8), "big") >> 1)
+
+
+_IDS = _id_counter()
+
+
+def _reseed_ids() -> None:
+    global _IDS
+    _IDS = _id_counter()
+
+
+os.register_at_fork(after_in_child=_reseed_ids)
+
+
 def _new_id() -> str:
-    return os.urandom(8).hex()
+    return "%016x" % next(_IDS)
 
 
 class _NoopSpan:
@@ -178,6 +201,8 @@ class Tracer:
         self._path: Optional[str] = None       # guarded-by: _lock
         self._written = 0                      # guarded-by: _lock
         self._dropped = 0                      # guarded-by: _lock
+        self._evicted = 0                      # guarded-by: _lock
+        self._totals: dict = {}                # guarded-by: _lock
 
     # ------------------------------------------------------------ control
     def enable(self, path: Optional[str] = None,
@@ -190,6 +215,8 @@ class Tracer:
             self._path = path
             self._written = 0
             self._dropped = 0
+            self._evicted = 0
+            self._totals = {}
             self._max_file_spans = max_file_spans
             if path:
                 self._fh = open(path, "a", encoding="utf-8")  # noqa: SIM115
@@ -252,7 +279,14 @@ class Tracer:
     def _record(self, span: Span) -> None:
         line = None
         with self._lock:
+            if len(self._ring) == self._ring.maxlen:
+                self._evicted += 1
             self._ring.append(span)
+            tot = self._totals.get(span.name)
+            if tot is None:
+                tot = self._totals[span.name] = [0, 0.0]
+            tot[0] += 1
+            tot[1] += span.t1 - span.t0
             if self._fh is not None:
                 if self._written < getattr(self, "_max_file_spans",
                                            MAX_FILE_SPANS):
@@ -270,11 +304,17 @@ class Tracer:
             self._ring.clear()
             return out
 
+    def totals(self) -> dict:
+        """{span name: (spans, seconds)} of every span finished since the
+        last :meth:`enable`, evicted from the ring or drained or not."""
+        with self._lock:
+            return {k: (v[0], v[1]) for k, v in self._totals.items()}
+
     def stats(self) -> dict:
         with self._lock:
             return {"enabled": self.enabled, "path": self._path,
                     "written": self._written, "dropped": self._dropped,
-                    "ring": len(self._ring)}
+                    "evicted": self._evicted, "ring": len(self._ring)}
 
 
 TRACER = Tracer()

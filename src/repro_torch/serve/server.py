@@ -346,7 +346,10 @@ class ReleaseServer:
                     break
             self.stats.dequeue(len(batch))
             try:
-                self._serve_batch(batch)
+                with TRACER.span("serve.batch") as sp:
+                    groups = self._serve_batch(batch)
+                    if sp:
+                        sp.set(requests=len(batch), groups=groups)
             except Exception as exc:   # noqa: BLE001 — never kill the worker
                 # _serve_batch fails individual requests through their
                 # futures; anything escaping it is a bug, but dying here
@@ -400,7 +403,8 @@ class ReleaseServer:
                     f"marginal for {c!r} has {got} cells, want {want} "
                     f"(nothing charged)")
 
-    def _serve_batch(self, batch) -> None:
+    def _serve_batch(self, batch) -> int:
+        """Serve one drained batch; returns its fused signature groups."""
         # Queue wait: an interval that started on the submitting thread —
         # recorded with an explicit t0 against each request's own trace.
         if TRACER.enabled:
@@ -517,6 +521,7 @@ class ReleaseServer:
                                 batch_size=len(batch))
                     p.trace.end()
                 p.future.set_result(result)
+        return fused_groups
 
     def _serve_one(self, p: _Pending, batch_size: int) -> ReleaseResult:
         req, sess = p.request, p.session

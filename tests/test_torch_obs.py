@@ -290,7 +290,7 @@ def test_chain_stats_reset_window_vs_monotone_mirror():
 def test_release_is_traced_and_metered(tmp_path):
     """One CPU release under tracing: engine spans with kernel.chain
     children, a release.postprocess span, the same tables as untraced, and
-    the four shared families plus the roofline gauges in /metrics."""
+    the three shared families plus the roofline gauges in /metrics."""
     from repro_torch.core import Domain, all_kway, select_sum_of_variances
     from repro_torch.data.tabular import marginals_from_records, \
         synthetic_records
@@ -324,11 +324,228 @@ def test_release_is_traced_and_metered(tmp_path):
     assert {"engine.measure", "engine.reconstruct"} <= parents
     text = tobs.REGISTRY.exposition()
     for fam in ("repro_engine_events_total", "repro_kernel_events_total",
-                "repro_engine_cache_events_total",
-                "repro_kernel_launch_seconds", "repro_chain_smem_bytes",
+                "repro_engine_cache_events_total", "repro_chain_smem_bytes",
                 "repro_chain_predicted_seconds",
                 "repro_chain_predicted_intensity"):
         assert f"# TYPE {fam} " in text, fam
+    # the launch histogram is gone: kernel.chain spans time the dispatch
+    assert "repro_kernel_launch_seconds" not in text
     parsed = tobs.parse_exposition(text)
     lab = chain_label((3, 4), 1, "float32")
     assert parsed["repro_chain_smem_bytes"][f'chain="{lab}"'] > 0
+
+
+# ------------------------------------------ span IDs, the ring, phase spans
+def test_span_ids_unique_across_spans_and_tracers():
+    """Minted IDs keep the 16-hex-character form and never repeat, within
+    one tracer over 100,000 spans or between two tracers."""
+    a, b = Tracer(ring_size=128), Tracer(ring_size=128)
+    a.enable()
+    b.enable()
+    try:
+        ids = []
+        for tr in (a, b):
+            for _ in range(50_000):
+                sp = tr.span("s")
+                ids += [sp.span_id, sp.trace_id]
+                sp.end()
+    finally:
+        a.disable()
+        b.disable()
+    assert len(set(ids)) == len(ids) == 200_000
+    assert all(len(i) == 16 and int(i, 16) >= 0 for i in ids)
+
+
+def test_ring_eviction_is_counted():
+    """A span the full ring pushes out is counted in stats(); enable()
+    starts the count afresh."""
+    tr = Tracer(ring_size=4)
+    tr.enable()
+    try:
+        for i in range(7):
+            tr.span("s").set(i=i).end()
+        st = tr.stats()
+        assert st["ring"] == 4 and st["evicted"] == 3
+        assert [s.attrs["i"] for s in tr.drain()] == [3, 4, 5, 6]
+        tr.span("s").end()
+        assert tr.stats()["evicted"] == 3
+        tr.enable()
+        assert tr.stats()["evicted"] == 0
+    finally:
+        tr.disable()
+
+
+def test_untraced_chain_call_reads_no_clock(monkeypatch):
+    """With tracing off a chain call neither reads the clock nor mints a
+    span: the tracer's clock and ID source both raise if touched."""
+    from repro_torch.core.residual import sub_matrix
+    from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
+    from repro_torch.obs import trace as trace_mod
+
+    def boom(*_a):
+        raise AssertionError("read while tracing is off")
+
+    assert not tobs.TRACER.enabled
+    monkeypatch.setattr(trace_mod.time, "monotonic", boom)
+    monkeypatch.setattr(trace_mod, "_new_id", boom)
+    x = torch.ones((2, 12))
+    y = fused_chain_matvec([sub_matrix(3), sub_matrix(4)], x, (3, 4))
+    assert y.shape == (2, 6)
+
+
+_SIZES = [3, 4, 3, 5, 2, 4]       # mixed sizes: groups of 1 to several
+
+
+def _mixed_release(traced: bool, seed: int = 3):
+    """One CPU MarginalEngine release on a small mixed-size domain, all
+    <=3-way; returns (tables, measurements, spans, plan, engine)."""
+    from repro_torch.core import Domain, all_kway, select_sum_of_variances
+    from repro_torch.data.tabular import marginals_from_records, \
+        synthetic_records
+    from repro_torch.engine import MarginalEngine
+    dom = Domain.create(_SIZES)
+    plan = select_sum_of_variances(all_kway(dom, 3, include_lower=True), 1.0)
+    margs = marginals_from_records(dom, plan.cliques,
+                                   synthetic_records(dom, 400, seed=1))
+    eng = MarginalEngine(plan, device="cpu")
+    tr = tobs.TRACER
+    tr.drain()
+    if traced:
+        tr.enable()
+    try:
+        tables, meas = eng.release(margs, torch.Generator().manual_seed(seed))
+    finally:
+        if traced:
+            tr.disable()
+    return tables, meas, tr.drain(), plan, eng
+
+
+@pytest.fixture(scope="module")
+def traced_release():
+    return _mixed_release(True)
+
+
+_PHASES = {"engine.measure": ("measure.stack", "measure.h2d", "measure.d2h",
+                              "measure.scatter"),
+           "engine.reconstruct": ("reconstruct.embed", "reconstruct.h2d",
+                                  "reconstruct.d2h", "reconstruct.slice")}
+
+
+@pytest.mark.parametrize("phase", sorted(_PHASES))
+def test_release_phase_spans_one_per_group(traced_release, phase):
+    """One span of each phase per signature group (the reconstruct chain's
+    phases per group with dims; its empty clique is a slice alone), one
+    prep span, one kernel.chain per chain, all children of the phase's
+    engine span, each with the group's dims and size."""
+    from repro_torch.core.mechanism import signature_groups
+    _, _, spans, plan, _ = traced_release
+    (parent,) = [s for s in spans if s.name == phase]
+    kids = [s for s in spans if s.parent_id == parent.span_id]
+    cliques = plan.cliques if phase == "engine.measure" \
+        else plan.workload.cliques
+    groups = signature_groups(plan.domain, cliques)
+    with_dims = {d: len(g) for d, g in groups.items() if d}
+    prefix = phase.split(".")[1]
+    assert [s.name for s in kids].count(f"{prefix}.prep") == 1
+    assert [s.name for s in kids].count("kernel.chain") == len(with_dims)
+    for name in _PHASES[phase]:
+        got = {tuple(s.attrs["dims"]): s.attrs["g"] for s in kids
+               if s.name == name}
+        n = sum(s.name == name for s in kids)
+        want = dict(with_dims)
+        if phase == "engine.measure" or name == "reconstruct.slice":
+            want.update({d: len(g) for d, g in groups.items() if not d})
+        assert n == len(want) and got == want, name
+        if name.endswith(("h2d", "d2h")):
+            assert all(s.attrs["bytes"] > 0 for s in kids if s.name == name)
+    assert all(s.trace_id == parent.trace_id for s in kids)
+
+
+@pytest.mark.parametrize("phase", sorted(_PHASES))
+def test_release_leaf_spans_tile_their_parent(traced_release, phase):
+    """The leaf spans under an engine span do not overlap, lie inside it,
+    and their sum does not exceed its duration."""
+    _, _, spans, _, _ = traced_release
+    (parent,) = [s for s in spans if s.name == phase]
+    leaves = sorted((s for s in spans if s.parent_id == parent.span_id),
+                    key=lambda s: s.t0)
+    assert len(leaves) > 4
+    for a, b in zip(leaves, leaves[1:]):
+        assert a.t1 <= b.t0, (a.name, b.name)
+    assert parent.t0 <= leaves[0].t0 and leaves[-1].t1 <= parent.t1
+    assert sum(s.t1 - s.t0 for s in leaves) <= parent.t1 - parent.t0
+    # no span of the release nests below a leaf
+    leaf_ids = {s.span_id for s in leaves}
+    assert not any(s.parent_id in leaf_ids for s in spans)
+
+
+def test_traced_release_bit_identical_to_untraced(traced_release):
+    """Tracing only observes: the same seed gives the same measurements and
+    tables, bit for bit, with the phase spans on or off."""
+    tables, meas, _, _, _ = traced_release
+    plain_tables, plain_meas, spans, _, _ = _mixed_release(False)
+    assert not spans
+    assert set(tables) == set(plain_tables)
+    for c in plain_tables:
+        assert np.array_equal(tables[c], plain_tables[c]), c
+    for c in plain_meas:
+        assert np.array_equal(meas[c].omega, plain_meas[c].omega), c
+
+
+def test_setup_spans_engine_build_and_plan_select():
+    """Building a plan and an engine under tracing leaves plan.select and
+    engine.build with engine.register under it (engine.warmup runs only on
+    the card, where the engine precompiles)."""
+    from repro_torch.core import Domain, all_kway, select_sum_of_variances
+    from repro_torch.engine import MarginalEngine
+    tr = tobs.TRACER
+    tr.drain()
+    tr.enable()
+    try:
+        plan = select_sum_of_variances(
+            all_kway(Domain.create([3, 4, 5]), 2, include_lower=True), 1.0)
+        eng = MarginalEngine(plan, device="cpu")
+    finally:
+        tr.disable()
+    by = {s.name: s for s in tr.drain()}
+    assert by["plan.select"].attrs["objective"] == "sum_of_variances"
+    assert by["plan.select"].attrs["cliques"] == 6
+    build, reg = by["engine.build"], by["engine.register"]
+    assert reg.parent_id == build.span_id
+    assert reg.attrs["chains"] == len(eng.chain_plans()) > 0
+    assert build.t0 <= reg.t0 <= reg.t1 <= build.t1
+    assert "engine.warmup" not in by
+
+
+def test_serve_batch_span_per_drain(tmp_path):
+    """A traced server drain of a prefilled queue is one serve.batch span,
+    with its request count and fused signature groups."""
+    from repro_torch.core import Domain, all_kway, select_sum_of_variances
+    from repro_torch.data.tabular import marginals_from_records, \
+        synthetic_records
+    from repro_torch.serve import BudgetLedger, ReleaseRequest, ReleaseServer
+    dom = Domain.create([3, 4, 5])
+    plan = select_sum_of_variances(all_kway(dom, 2, include_lower=True), 1.0)
+    margs = marginals_from_records(dom, plan.cliques,
+                                   synthetic_records(dom, 200, seed=4))
+    srv = ReleaseServer(BudgetLedger(str(tmp_path / "l.jsonl"), fsync=False),
+                        max_batch=8, device="cpu").start()
+    for t in ("a", "b"):
+        srv.register_tenant(t, plan, pcost=10.0)
+    tr = tobs.TRACER
+    tr.drain()
+    tr.enable()
+    try:
+        srv.pause()
+        futs = [srv.submit(ReleaseRequest(tenant=t, marginals=margs, seed=i))
+                for i, t in enumerate(("a", "b", "a"))]
+        srv.resume()
+        [f.result(300) for f in futs]
+    finally:
+        srv.stop()
+        srv.ledger.close()
+        tr.disable()
+    batches = [s for s in tr.drain() if s.name == "serve.batch"]
+    assert len(batches) == 1
+    assert batches[0].attrs["requests"] == 3
+    assert batches[0].attrs["groups"] == srv.stats.batched_launch_groups > 0

@@ -4,15 +4,16 @@ NVIDIA GPU.
 
     PYTHONPATH=src python3 tools/obs_overhead.py [--calls N] [--rounds N]
 
-Prints one JSON line with the host time per call of ``time.monotonic``,
-``os.urandom(8)`` (a span draws two ids), an empty span written to the
-JSONL sink, the bookkeeping that every untraced chain call does whether or
-not anyone reads it (the no-op span and its check, the cached histogram
-lookup, two clock reads, one histogram observation and two kernel-event
-increments), and a (10, 10) ``fused_chain_matvec`` call of 8 rows on the
-card untraced and traced (alternated ``--rounds`` times; medians), each
-batch of ``--calls`` calls ended by a synchronise, beside the card's name
-and power limit.  The trace goes to a temporary file that is removed.
+Prints one JSON line with the host time per call of ``time.monotonic``
+(a span reads it twice), ``os.urandom(8)`` (what a span ID once cost),
+minting one span ID, an empty span kept in the in-memory ring alone (as a
+traced benchmark run keeps it) and one also written to the JSONL sink, the
+bookkeeping that every untraced chain call does whether or not anyone
+reads it (the no-op span and its check, two kernel-event increments), and
+a (10, 10) ``fused_chain_matvec`` call of 8 rows on the card untraced and
+traced (alternated ``--rounds`` times; medians), each batch of ``--calls``
+calls ended by a synchronise, beside the card's name and power limit.
+The trace goes to a temporary file that is removed.
 """
 from __future__ import annotations
 
@@ -37,10 +38,10 @@ def main() -> None:
 
     import torch
     from repro_torch.core.residual import sub_matrix
-    from repro_torch.kernels.kron_matvec.fused import (_launch_series,
-                                                       fused_chain_matvec)
+    from repro_torch.kernels.kron_matvec.fused import fused_chain_matvec
     from repro_torch.kernels.kron_matvec.stats import CHAIN_STATS
     from repro_torch.obs import TRACER
+    from repro_torch.obs.trace import _new_id
     if not torch.cuda.is_available():
         raise SystemExit("obs_overhead: needs a CUDA device")
 
@@ -58,15 +59,11 @@ def main() -> None:
             pass
 
     def bookkeeping():
-        t0 = time.monotonic()
-        _, seconds = _launch_series((10, 10), 8, "float32")
-        sp = TRACER.span("kernel.chain")
-        if sp:
-            sp.set(chain="probe")
-        with sp:
+        with TRACER.span("kernel.chain") as sp:
+            if sp:
+                sp.set(chain="probe")
             CHAIN_STATS.inc("fused_chains")
             CHAIN_STATS.inc("fused_launches")
-        seconds.observe(time.monotonic() - t0)
 
     facs = [sub_matrix(10), sub_matrix(10)]
     x = torch.randn((8, 100), generator=torch.Generator("cuda").manual_seed(0),
@@ -79,8 +76,13 @@ def main() -> None:
     os.close(fd)
     out = {"monotonic": per_call(time.monotonic),
            "urandom(8)": per_call(lambda: os.urandom(8)),
+           "span id": per_call(_new_id),
            "untraced bookkeeping": per_call(bookkeeping)}
     try:
+        TRACER.enable()
+        out["empty span (ring)"] = per_call(empty_span)
+        TRACER.disable()
+        TRACER.drain()
         TRACER.enable(path)
         out["empty span"] = per_call(empty_span)
         TRACER.disable()
